@@ -1,0 +1,137 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card.  This file imports neither JAX nor the JAX package, so it runs on a
+machine that has only PyTorch and CUDA:
+
+    PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
+
+Elsewhere every test skips (the ``cuda`` fixture decides, never at import).
+Each test also checks that the wrapper counted exactly its own launches.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import convert
+from repro_torch.core import ShardedFabric, pack_ext_addr
+from repro_torch.core.fabric import stack_views
+from repro_torch.kernels import launches, ops
+from repro_torch.kernels import fabric_egress as tfe
+from repro_torch.kernels import memcrypt as tmc
+from repro_torch.kernels import permcheck as tpc
+from torch_parity import (assert_equal, cuda, mk_ext, mk_table,  # noqa: F401
+                          words)
+
+SDM = 1 << 22
+
+
+def _launched(name, fn):
+    before = launches[name]
+    out = fn()
+    torch.cuda.synchronize()
+    assert launches[name] == before + 1, name
+    return out
+
+
+@pytest.mark.cuda
+def test_memcrypt_kernel(cuda):  # noqa: F811
+    rng = np.random.default_rng(0)
+    data = convert.u32_from_numpy(words(rng, (7, 100_003)), cuda)
+    for base in (0, 12345, 2**32 - 9):
+        out = _launched("memcrypt", lambda: tmc.memcrypt(
+            data, key0=0xAB, key1=0xCD, base_word=base))
+        assert out.shape == data.shape
+        assert_equal(out, tmc.ref.memcrypt(data, 0xAB, 0xCD, base))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_entries", [0, 1, 1025, 9000, 65536])
+def test_permcheck_kernel_all_modes(cuda, n_entries):  # noqa: F811
+    rng = np.random.default_rng(n_entries)
+    starts, ends, perms = mk_table(rng, n_entries, SDM)
+    view = tpc.make_shard_view(starts, ends, perms, device=cuda)
+    for hot in (1.0, 0.0):
+        ext = torch.from_numpy(mk_ext(rng, starts[:4] if hot else starts,
+                                      3001, SDM, hot=hot)).to(cuda)
+        for need in (1, 2, 3):
+            pa, pi = tpc.permcheck_view_plain(ext, view, hwpid=3, need=need)
+            for mode in ("flat", "hier", "adaptive"):
+                ka, ki = _launched("permcheck", lambda: tpc.permcheck_view(
+                    ext, view, hwpid=3, need=need, mode=mode))
+                assert_equal(ka, pa)
+                assert_equal(ki, pi)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_entries", [0, 1, 2500, 65536])
+def test_checked_memcrypt_kernel(cuda, n_entries):  # noqa: F811
+    rng = np.random.default_rng(n_entries + 1)
+    starts, ends, perms = mk_table(rng, n_entries, SDM)
+    view = tpc.make_shard_view(starts, ends, perms, device=cuda)
+    for hot in (1.0, 0.0):
+        ext = torch.from_numpy(mk_ext(rng, starts[:4] if hot else starts,
+                                      9000, SDM, hot=hot)).to(cuda)
+        d = convert.u32_from_numpy(words(rng, 9000), cuda)
+        for need in (1, 2):
+            args = dict(hwpid=3, need=need, key0=1, key1=2, base_word=77)
+            ko, kf = _launched("checked_memcrypt",
+                               lambda: tmc.checked_memcrypt_view(
+                                   d, ext, view, **args))
+            po, pf = tmc.checked_memcrypt_view_plain(d, ext, view, **args)
+            assert_equal(ko, po)
+            assert_equal(kf, pf)
+
+
+@pytest.mark.cuda
+def test_fabric_egress_kernel_flat_and_hier_rows(cuda):  # noqa: F811
+    rng = np.random.default_rng(4)
+    views, exts = [], []
+    for r, n in enumerate([5, 1500, 40, 9000, 1, 4096]):
+        starts, ends, perms = mk_table(rng, n, SDM)
+        views.append(tpc.make_shard_view(starts, ends, perms, device=cuda))
+        hot = r % 2 == 0
+        exts.append(mk_ext(rng, starts[:3] if hot else starts, 4000, SDM,
+                           hot=1.0 if hot else 0.5,
+                           tags=(r + 1,) * 4 + (0, 9, -1)))
+    view = stack_views(views, range(1, 7), range(6), epoch=0)
+    ext = torch.from_numpy(np.stack(exts)).to(cuda)
+    data = convert.u32_from_numpy(words(rng, tuple(ext.shape)), cuda)
+    for need in (1, 2):
+        ko, kf = _launched("fabric_egress", lambda: tfe.fabric_egress(
+            data, ext, view, need=need, key0=3, key1=4))
+        po, pf = tfe.fabric_egress_plain(data, ext, view, need=need, key0=3,
+                                         key1=4)
+        assert_equal(ko, po)
+        assert_equal(kf, pf)
+
+
+@pytest.mark.cuda
+def test_entry_points_default_to_the_card(cuda):  # noqa: F811
+    """With no ``device=``, the entry points run on CUDA and launch the
+    kernels; a small fabric agrees with the same fabric on the CPU."""
+    rng = np.random.default_rng(5)
+    starts, ends, perms = mk_table(rng, 50, 1 << 16)
+    ext = mk_ext(rng, starts, 700, 1 << 16)
+    allowed, _ = _launched("permcheck", lambda: ops.permission_check(
+        ext, starts, ends, perms, hwpid=3, need=1))
+    assert allowed.device.type == "cuda"
+    outs = []
+    for device in (None, "cpu"):
+        rng = np.random.default_rng(6)
+        fab = ShardedFabric(1 << 14, 512, 4, device=device)
+        for h in range(4):
+            fab.enroll(h)
+        tenants = {h: fab.admit(h, 48) for h in range(4)}
+        fab.quiesce()
+        assign = {h: t[0] for h, t in tenants.items()}
+        ext = np.stack([np.asarray(pack_ext_addr(
+            np.full(1500, t[0]), t[1] + rng.integers(-8, 56, 1500)))
+            for t in tenants.values()])
+        data = words(rng, ext.shape)
+        outs.append(fab.step_egress(data, ext, assign))
+        fab.evict(2, assign[2])
+        fab.quiesce()
+        outs.append(fab.step_egress(data, ext, assign))
+    for (a, fa), (b, fb) in zip(outs[:2], outs[2:]):
+        assert a.device.type == "cuda"
+        assert_equal(a, b)
+        assert_equal(fa, fb)

@@ -1,0 +1,64 @@
+"""Import hygiene of the port: nothing under ``src/repro_torch/``, and not
+``chip_smoke.py``, imports JAX or the JAX package; importing the port's
+core and ops loads neither; and the entry points refuse to run without
+CUDA unless the caller asks for the CPU."""
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _imported_roots(path: Path) -> set[str]:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+def test_port_sources_import_neither_jax_nor_the_jax_package():
+    files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
+    files.append(REPO / "chip_smoke.py")
+    assert len(files) > 15
+    for f in files:
+        bad = _imported_roots(f) & set(FORBIDDEN)
+        assert not bad, f"{f.relative_to(REPO)} imports {sorted(bad)}"
+
+
+def test_importing_the_port_loads_no_jax():
+    code = ("import sys, repro_torch.core, repro_torch.kernels.ops, "
+            "repro_torch.convert\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r}]\n"
+            "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          env={"PYTHONPATH": str(REPO / "src"),
+                               "PATH": "/usr/bin:/bin"},
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_entry_points_need_cuda_unless_asked_for_the_cpu(monkeypatch):
+    from repro_torch.core import (FabricManager, ShardedFabric, make_table,
+                                  make_perm_cache)
+    from repro_torch.kernels import ops
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ShardedFabric(1 << 10, 64, 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_table(8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_perm_cache()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ops.memory_encrypt([1, 2, 3], key0=1, key1=2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        FabricManager(1 << 10, 8).table.to_device()
+    assert ShardedFabric(1 << 10, 64, 2, device="cpu").device.type == "cpu"
