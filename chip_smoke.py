@@ -50,7 +50,7 @@ from repro_torch.kernels import memcrypt as mc  # noqa: E402
 from repro_torch.kernels import permcheck as pc  # noqa: E402
 
 SEED = 0
-# H100 SXM peaks (on-chip-measurement guide): HBM bandwidth, and the
+# H100 SXM peaks (NVIDIA H100 datasheet): HBM bandwidth, and the
 # 32-bit non-tensor rate, against which the kernels' int32 operations are
 # counted (Hopper issues int32 at up to that rate, so the bound is a floor)
 PEAK_BYTES_PER_S = 3.35e12
