@@ -26,6 +26,7 @@ and exits 2.
 """
 from __future__ import annotations
 
+import functools
 import json
 import subprocess
 import sys
@@ -50,15 +51,21 @@ from repro_torch.kernels import memcrypt as mc  # noqa: E402
 from repro_torch.kernels import permcheck as pc  # noqa: E402
 
 SEED = 0
-# H100 SXM peaks (NVIDIA H100 datasheet): HBM bandwidth, and the
-# 32-bit non-tensor rate, against which the kernels' int32 operations are
-# counted (Hopper issues int32 at up to that rate, so the bound is a floor)
+# H100 SXM HBM bandwidth (NVIDIA H100 datasheet).
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = 67e12
-KEYSTREAM_OPS = 53      # per word: 36 round ops, 9 key adds, setup, XOR
+# The kernels do int32 work: add, logic, shift, funnel shift and compare
+# issue at 64 per clock per SM on compute capability 9.0 (CUDA C++
+# Programming Guide, arithmetic instruction throughput).  The int32 peak is
+# that times the card's SM count times its maximum SM clock, both read from
+# the card (132 SMs at 1980 MHz give 16.7e12 per second on an H100 SXM; the
+# datasheet's 67 TFLOP/s counts each fp32 FMA as two operations).
+INT32_OPS_PER_CLOCK_PER_SM = 64
+KEYSTREAM_OPS = 52      # per word: 6 setup, 12 rounds x (add, rotate, xor),
+#                         7 key adds, 2 position, 1 data XOR (egress.cuh)
 LOOKUP_OPS = 4          # per (address, entry): sub, 2 compares, select/or
 COVER_OPS = 3           # per (word, entry) without the index
 SUMMARY_OPS = 2         # per (address, tile) of the hier summary test
+INT32_MAX = np.iinfo(np.int32).max
 
 SDM_PAGES = 1 << 18     # 1 GiB SDM at 4 KiB pages
 N_HOSTS, N_PROCS = 255, 127
@@ -121,12 +128,44 @@ def _device_us(evt) -> float:
                  or getattr(evt, "self_cuda_time_total", 0.0))
 
 
+@functools.cache
+def int32_peak() -> tuple[float, int, float]:
+    """(int32 operations per second, SM count, maximum SM clock in MHz) of
+    card 0."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--id=0", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.strip())
+    return INT32_OPS_PER_CLOCK_PER_SM * sms * mhz * 1e6, sms, mhz
+
+
 def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
     """Least time (ms) for the work: bytes over HBM bandwidth or int32
-    operations over the 32-bit peak, whichever is larger."""
+    operations over the int32 peak, whichever is larger."""
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = n_ops / PEAK_OPS_PER_S * 1e3
+    t_ops = n_ops / int32_peak()[0] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def table_bytes(view) -> float:
+    """Bytes of a shard's (or stacked shards') lookup operands that the
+    function must read once: 12 per live entry (start, size, granted size;
+    the INT32_MAX padding sentinels carry nothing) and 8 per tile summary
+    (min, max)."""
+    live = int((view.starts != INT32_MAX).sum())
+    return 12.0 * live + 8.0 * view.tile_min.numel()
+
+
+def fabric_bound(ext, fault, view) -> tuple[float, str]:
+    """Bound of one fabric egress over this data: 16 bytes per word (data
+    and address in, word and fault out), the live table, 8 bytes per row
+    (hwpid, flat/hier choice); the lookup on every candidate entry and the
+    keystream on the granted words."""
+    n_cand, n_summ = lookup_work(ext & 0xFFFFFF, view)
+    return bound(16 * ext.numel() + table_bytes(view) + 8 * ext.shape[0],
+                 KEYSTREAM_OPS * int((fault == 0).sum()) + COVER_OPS * n_cand
+                 + SUMMARY_OPS * n_summ)
 
 
 def compare(name: str, got, want) -> tuple[int, int]:
@@ -167,15 +206,23 @@ def trace(rng, starts, batch: int, sdm_pages: int, kind: str, hwpid: int,
     return ((tags << 24) | (pages & 0xFFFFFF)).astype(np.int32)
 
 
-def candidate_entries(pages, view_starts, tile_min, tile_max):
-    """Entries the lookup must evaluate for this data: per address, the
-    live entries of every tile whose [min, max) window holds its page."""
-    live = (view_starts != np.iinfo(np.int32).max).reshape(
+def live_per_tile(view_starts):
+    """Live (non-sentinel) entries in each 1024-entry tile, [..., T]."""
+    return (view_starts != INT32_MAX).reshape(
         *view_starts.shape[:-1], -1, pc.ENTRY_TILE).sum(-1)
-    cand = (pages[..., None] >= tile_min[..., None, :]) & \
-        (pages[..., None] < tile_max[..., None, :])
-    return float((cand.to(torch.float64)
-                  * live[..., None, :].to(torch.float64)).sum())
+
+
+def lookup_work(pages, view) -> tuple[float, float]:
+    """(entries, tile summaries) the lookup must evaluate for this data:
+    per address, the live entries of every tile whose [min, max) window
+    holds its page, and the summaries of its shard's live tiles."""
+    live = live_per_tile(view.starts)
+    cand = (pages[..., None] >= view.tile_min[..., None, :]) & \
+        (pages[..., None] < view.tile_max[..., None, :])
+    n_cand = float((cand.to(torch.float64)
+                    * live[..., None, :].to(torch.float64)).sum())
+    n_summ = float(((live > 0).sum(-1) * pages.shape[-1]).sum())
+    return n_cand, n_summ
 
 
 def library_permcheck(ext, starts, ends, permbits, hwpid: int, need: int):
@@ -222,12 +269,9 @@ def kernel_phases(dev, results: dict) -> None:
     for kind in ("hot", "uniform"):
         ext = torch.from_numpy(trace(rng, starts, b, sdm, kind, 3)).to(dev)
         chosen = pc.selected_mode(ext, view)
-        pages = ext & 0xFFFFFF
-        n_cand = candidate_entries(pages, view.starts, view.tile_min,
-                                   view.tile_max)
-        b_ms, b_by = bound(9 * b + 12 * view.starts.numel(),
-                           LOOKUP_OPS * n_cand
-                           + SUMMARY_OPS * b * view.n_tiles)
+        n_cand, n_summ = lookup_work(ext & 0xFFFFFF, view)
+        b_ms, b_by = bound(9 * b + table_bytes(view),
+                           LOOKUP_OPS * n_cand + SUMMARY_OPS * n_summ)
         want = pc.permcheck_view_plain(ext, view, hwpid=3, need=1)
         plain_ms = cuda_ms(lambda: pc.permcheck_view_plain(
             ext, view, hwpid=3, need=1), 1)
@@ -274,12 +318,11 @@ def kernel_phases(dev, results: dict) -> None:
         mism_all, err_all = mism_all + m, max(err_all, e)
         faults = torch.bincount(want[1], minlength=6).tolist()
         fault_mix += faults
-        n_cand = candidate_entries(ext & 0xFFFFFF, view.starts,
-                                   view.tile_min, view.tile_max)
+        n_cand, n_summ = lookup_work(ext & 0xFFFFFF, view)
         n_ok = int((want[1] == 0).sum())
-        b_ms, b_by = bound(16 * b + 12 * view.starts.numel(),
+        b_ms, b_by = bound(16 * b + table_bytes(view),
                            KEYSTREAM_OPS * n_ok + COVER_OPS * n_cand
-                           + SUMMARY_OPS * b * view.n_tiles)
+                           + SUMMARY_OPS * n_summ)
         call = (lambda: mc.checked_memcrypt_view(d, ext, view, **args))
         ms = cuda_ms(call, 5)
         plain_ms = cuda_ms(lambda: mc.checked_memcrypt_view_plain(
@@ -327,13 +370,7 @@ def kernel_phases(dev, results: dict) -> None:
     got = fe.fabric_egress(d, ext, fview, **args)
     want = fe.fabric_egress_plain(d, ext, fview, **args)
     mism, err = compare("fabric_egress", got, want)
-    n_cand = candidate_entries(ext & 0xFFFFFF, fview.starts, fview.tile_min,
-                               fview.tile_max)
-    words = ext.numel()
-    b_ms, b_by = bound(16 * words + 12 * fview.starts.numel(),
-                       KEYSTREAM_OPS * int((want[1] == 0).sum())
-                       + COVER_OPS * n_cand
-                       + SUMMARY_OPS * words * fview.tile_min.shape[1])
+    b_ms, b_by = fabric_bound(ext, want[1], fview)
     results["fabric_egress"] = dict(
         shape=f"{N_PROCS} rows x {WORDS_PER_ROW} words, {n_hier} hier rows, "
               f"{fview.starts.shape[1]} entries per row",
@@ -437,10 +474,22 @@ def fabric_main_path(dev) -> dict:
         assert bool((fault[live] == 0).all()), f"step {step}: false denial"
         assert bool((out[live] == clear[live]).all()), \
             f"step {step}: bad words"
+        if step == 3:
+            # the deployment's own launch, revoked row included, against
+            # the plain version on the same inputs, code for code
+            fview = fab.fabric_view(assign)
+            compare("fabric_egress main path", (out, fault),
+                    fe.fabric_egress_plain(data, ext, fview, need=1,
+                                           key0=KEY0, key1=KEY1))
+            b_ms, b_by = fabric_bound(torch.from_numpy(ext).to(dev), fault,
+                                      fview)
     log(f"main fabric: {N_HOSTS} hosts, {N_PROCS} tenants, "
         f"{WORDS_PER_ROW} words/row, 6 steps, evict+quiesce after step 2: "
-        f"revoked row fully denied, {N_PROCS - 1} rows fault-free; setup "
-        f"{setup_s:.3f} s; step wall ms {[round(x, 4) for x in step_ms]}")
+        f"revoked row fully denied, {N_PROCS - 1} rows fault-free; step 3 "
+        f"bit-exact against the plain version (words and fault codes); "
+        f"setup {setup_s:.3f} s; step wall ms "
+        f"{[round(x, 4) for x in step_ms]}; kernel bound {b_ms:.4f} ms "
+        f"({b_by})")
 
     # where a steady step's time goes: device time by op over the wall time
     # of an unprofiled steady step (the device's busy share)
@@ -460,8 +509,10 @@ def fabric_main_path(dev) -> dict:
                          for e in prof.key_averages() if _device_us(e) > 0),
                         key=lambda kv: -kv[1])
     device_ms = sum(ms for _, ms in device_ops)
+    kernel_ms = sum(ms for k, ms in device_ops if "fabric_egress_kernel" in k)
     log(f"main fabric steady step: {wall_ms:.4f} ms per step, device busy "
-        f"{device_ms:.4f} ms ({100 * device_ms / wall_ms:.1f} %); top device "
+        f"{device_ms:.4f} ms ({100 * device_ms / wall_ms:.1f} %); kernel "
+        f"{kernel_ms:.4f} ms against its bound {b_ms:.4f} ms; top device "
         f"ops {[(k[:40], round(v, 4)) for k, v in device_ops[:6]]}")
 
     h, pid = rows[1]
@@ -476,7 +527,9 @@ def fabric_main_path(dev) -> dict:
         f"cache hit rate {rt.permcache.hit_rate:.4f}")
     return dict(setup_s=setup_s, step_wall_ms=step_ms,
                 steady_step_ms=wall_ms, steady_device_ms=device_ms,
-                device_ops=device_ops[:8], stats=fab.stats()["bus"])
+                step_kernel_ms=kernel_ms, step_bound_ms=b_ms,
+                step_bound_by=b_by, device_ops=device_ops[:8],
+                stats=fab.stats()["bus"])
 
 
 def main() -> int:
@@ -492,6 +545,10 @@ def main() -> int:
         f"{torch.cuda.device_count()}; torch {torch.__version__} cuda "
         f"{torch.version.cuda}")
     log(f"nvidia-smi: {smi}")
+    ops_per_s, sms, mhz = int32_peak()
+    log(f"peaks: HBM {PEAK_BYTES_PER_S:.3e} B/s; int32 {sms} SMs x "
+        f"{mhz:.0f} MHz x {INT32_OPS_PER_CLOCK_PER_SM} = {ops_per_s:.4e} "
+        f"ops/s")
 
     t = time.perf_counter()
     _build.library()
@@ -515,7 +572,8 @@ def main() -> int:
 
     line = {"kernels": [], "main_path": main,
             "card": smi, "peaks": {"bytes_per_s": PEAK_BYTES_PER_S,
-                                   "int32_ops_per_s": PEAK_OPS_PER_S}}
+                                   "int32_ops_per_s": ops_per_s,
+                                   "sms": sms, "max_sm_mhz": mhz}}
     for name, r in results.items():
         src, replaces = SOURCES[name]
         # the kernel's own device time; the whole wrapper call (helper ops

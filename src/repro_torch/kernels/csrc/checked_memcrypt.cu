@@ -4,7 +4,7 @@
 // Replaces src/repro/kernels/memcrypt.py:checked_memcrypt_view_pallas
 // (_checked_memcrypt_kernel, with _cover_search / _cover_tile from
 // permcheck.py).  Bound on the H100: integer operations — the lookup's
-// three per (word, evaluated entry) plus ~75 per word for the keystream,
+// three per (word, evaluated entry) plus ~52 per word for the keystream,
 // against 16 bytes per word and 12 per entry.  Design: the permcheck
 // kernel's shared-memory slab walk without the index bookkeeping (the egress
 // needs only "granted" and "covered"), then the keystream computed only on

@@ -3,14 +3,15 @@
 //
 // Replaces src/repro/kernels/fabric_egress.py:fabric_egress_pallas
 // (_fabric_egress_impl, _fabric_egress_kernel).  Bound on the H100: at the
-// 255-host deployment each row's shard is one 1024-entry slab, so the work
-// is ~1000 integer operations per word against 16 bytes per word: operations
-// bound.  Design: a 2-D grid (address block, row); each row's tenant HWPID
-// and flat/hier choice are read from device arrays, so admitting a tenant or
-// a row changing mode never rebuilds or re-launches anything, and flat and
-// hier rows share one launch.  Rows are not padded: the keystream position
-// is still counted as row * bucket_pad(B, 1024) + lane, as the reference
-// pads each row.
+// 255-host deployment each row's shard is one 1024-entry slab, so the flat
+// walk spends ~3000 integer operations per word (three per slab entry)
+// against 16 bytes per word: operations bound, although the function needs
+// only the slab's few live entries.  Design: a 2-D grid (address block,
+// row); each row's tenant HWPID and flat/hier choice are read from device
+// arrays, so admitting a tenant or a row changing mode never rebuilds or
+// re-launches anything, and flat and hier rows share one launch.  Rows are
+// not padded: the keystream position is still counted as
+// row * bucket_pad(B, 1024) + lane, as the reference pads each row.
 #include "egress.cuh"
 
 namespace {

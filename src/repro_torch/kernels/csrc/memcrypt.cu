@@ -1,9 +1,10 @@
 // Kernel 1: counter-mode ARX keystream XOR over a u32 buffer.
 //
 // Replaces src/repro/kernels/memcrypt.py:memcrypt_pallas (_memcrypt_kernel).
-// Bound on the H100: device-memory bytes — 8 bytes moved per word against
-// ~75 integer operations, which the SMs retire faster than HBM delivers the
-// words.  Design: one thread per word on a grid-stride loop, coalesced 4-byte
+// Bound on the H100: integer operations, narrowly — ~52 int32 operations per
+// word (12 rounds of add, rotate, xor plus key injections) at 64 per clock
+// per SM take about 1.3x as long as HBM needs for the 8 bytes moved per
+// word.  Design: one thread per word on a grid-stride loop, coalesced 4-byte
 // loads and stores, the keystream in registers; no shared memory and nothing
 // kept between words.
 #include "egress.cuh"
