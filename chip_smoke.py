@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's checked egress path on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's checked egress path and its serving path
+on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -7,17 +8,27 @@ Run from the root of a checkout on a machine with one CUDA card and the
 CUDA toolkit.  Phases, each reported on its own line:
 
   1. device — the card as torch and ``nvidia-smi`` name it, power limit;
-  2. build — the four egress kernels compiled from ``src/repro_torch/
-     kernels/csrc`` (nvcc, sm_90a);
-  3. kernel phases — each kernel held bit-exact against its plain PyTorch
-     version on the card at realistic sizes, and timed beside its bound
-     and, where one PyTorch call computes the same function, that call;
-  4. main path — the quickstart flow on one host through the port's
-     FabricManager and ops, then a 255-host / 127-tenant ShardedFabric
-     (1 GiB SDM, 8192-entry table, 4096 words per row) stepping through
-     the fabric kernel with an evict + quiesce mid-run, then a host's
-     checker through its PermCache twice.  Every kernel's launch count is
-     zeroed just before and read just after: each must have launched.
+  2. build — the five kernels compiled from ``src/repro_torch/kernels/
+     csrc`` (nvcc, sm_90a), with ptxas' register and spill lines;
+  3. kernel phases — each kernel held against its plain PyTorch version on
+     the card (the egress kernels bit-exact; flash attention within the
+     reference's 2e-5 (f32) / 3e-2 (bf16) on the reference's sweeps and at
+     qwen3-4b's serving shapes), and timed beside its bound and, where one
+     PyTorch call computes the same function, that call;
+  4. main path 1, the checked egress path — the quickstart flow on one
+     host through the port's FabricManager and ops, then a 255-host /
+     127-tenant ShardedFabric (1 GiB SDM, 8192-entry table, 4096 words per
+     row) stepping through the fabric kernel with an evict + quiesce
+     mid-run, then a host's checker through its PermCache twice;
+  5. main path 2, serving — qwen3-4b at full width (f32 parameters made on
+     the card from a seed) through ``ServeEngine(fused_egress=True)``: the
+     serving CLI's sequence (two co-resident tenants, revocation, eviction,
+     re-admission) with each layer's first prefill and decode attention
+     held against the plain version, then one decode step's launches, wall
+     time and device busy share, and the first group's logits against a
+     plain-attention run.
+  Each main path's kernel launch counts are zeroed just before it and read
+  just after: each of its kernels must have launched.
 
 Then one JSON line of per-kernel results and, last, the run's verdict
 ``{"ok": true, "device": {...}}``.  Any mismatch or failed check raises
@@ -31,6 +42,7 @@ import json
 import subprocess
 import sys
 import time
+from dataclasses import replace
 from pathlib import Path
 
 import numpy as np
@@ -39,6 +51,7 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch.configs import ARCHS  # noqa: E402
 from repro_torch.convert import u32_from_numpy  # noqa: E402
 from repro_torch.core import (FAULT_NO_ENTRY, FAULT_PERM,  # noqa: E402
                               PERM_RW, RING_USER, FabricManager, Proposal,
@@ -47,8 +60,11 @@ from repro_torch.core.fabric import stack_views  # noqa: E402
 from repro_torch.kernels import (_build, bucket_pad, launches,  # noqa: E402
                                  ops, reset_launches)
 from repro_torch.kernels import fabric_egress as fe  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import memcrypt as mc  # noqa: E402
 from repro_torch.kernels import permcheck as pc  # noqa: E402
+from repro_torch.launch.serve import ServeEngine, run_demo  # noqa: E402
+from repro_torch.models import registry  # noqa: E402
 
 SEED = 0
 # H100 SXM HBM bandwidth (NVIDIA H100 datasheet).
@@ -82,6 +98,8 @@ SOURCES = {
                          "src/repro/kernels/memcrypt.py:148"),
     "fabric_egress": ("src/repro_torch/kernels/csrc/fabric_egress.cu",
                       "src/repro/kernels/fabric_egress.py:170"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:96"),
 }
 
 
@@ -532,6 +550,298 @@ def fabric_main_path(dev) -> dict:
                 stats=fab.stats()["bus"])
 
 
+# -- the serving slice ------------------------------------------------------
+
+# Peak float rates of one H100 SXM (NVIDIA H100 datasheet, dense): 67 TFLOP/s
+# in f32 on the CUDA cores (the flash kernel's f32 path: IEEE FMA, no
+# TF32), 989 TFLOP/s in bf16 on the tensor cores.
+PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
+FLASH_F32_TOL, FLASH_BF16_TOL = 2e-5, 3e-2   # tests/test_kernels_flash.py
+# (b, h, hkv, sq, sk, dh, causal, window): the reference's flash sweeps
+# (ragged, GQA/MQA, non-causal, window, dh 128) plus rows on the kernel's
+# 16-row q tile (Sq <= 16: decode and short prompts)
+FLASH_SWEEP = [
+    (2, 4, 4, 128, 128, 64, True, -1), (2, 4, 4, 256, 384, 64, True, -1),
+    (2, 4, 4, 200, 200, 64, True, -1), (1, 8, 2, 128, 128, 64, True, -1),
+    (1, 4, 1, 128, 128, 64, True, -1), (1, 2, 2, 128, 256, 64, False, -1),
+    (1, 2, 2, 256, 256, 64, True, 64), (1, 2, 2, 256, 256, 64, True, 160),
+    (1, 2, 2, 128, 128, 128, True, -1), (2, 4, 2, 1, 300, 256, True, 40),
+    (1, 4, 2, 9, 40, 64, True, 8),
+]
+# qwen3-4b serving: batch 4, prompt 1024, 32 generated tokens
+SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = "qwen3-4b", 4, 1024, 32
+SERVE_REQUESTS = 8
+LOGITS_TOL = 1e-3
+
+
+def close(got, want, tol: float) -> float:
+    """max |got - want|; raises unless |got - want| <= tol + tol * |want|
+    everywhere (the reference tests' rtol = atol)."""
+    g, w = got.float(), want.float()
+    err = float((g - w).abs().max())
+    if not bool(((g - w).abs() <= tol + tol * w.abs()).all()):
+        raise AssertionError(f"max |diff| {err} beyond rtol = atol = {tol}")
+    return err
+
+
+def flash_work(b, h, hkv, sq, sk, dh, causal, window, itemsize):
+    """(bytes, flops) the attention function needs: q, k, v and o once;
+    4 * dh FLOPs per visible (query, key) pair."""
+    q_pos = np.arange(sq)[:, None] + (sk - sq)
+    k_pos = np.arange(sk)[None, :]
+    vis = np.ones((sq, sk), bool)
+    if causal:
+        vis &= k_pos <= q_pos
+    if window > 0:
+        vis &= k_pos > q_pos - window
+    n_bytes = itemsize * dh * (2 * b * h * sq + 2 * b * hkv * sk)
+    return n_bytes, 4.0 * b * h * int(vis.sum()) * dh
+
+
+def flash_bound(case, dtype) -> tuple[float, str]:
+    n_bytes, flops = flash_work(*case, itemsize=torch.finfo(dtype).bits // 8)
+    peak = PEAK_F32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def flash_phase(dev, results: dict) -> None:
+    """The flash kernel against its plain version on every sweep and on the
+    serving shapes, timed beside its bound and PyTorch's SDPA."""
+    rng = np.random.default_rng(SEED + 3)
+
+    def qkv(b, h, hkv, sq, sk, dh, dtype):
+        mk = lambda *shape: torch.from_numpy(
+            rng.normal(size=shape).astype(np.float32)).to(dev, dtype)
+        return mk(b, h, sq, dh), mk(b, hkv, sk, dh), mk(b, hkv, sk, dh)
+
+    err_all = 0.0
+    for case in FLASH_SWEEP:
+        b, h, hkv, sq, sk, dh, causal, window = case
+        for dtype, tol in ((torch.float32, FLASH_F32_TOL),
+                           (torch.bfloat16, FLASH_BF16_TOL)):
+            q, k, v = qkv(b, h, hkv, sq, sk, dh, dtype)
+            want = fa.flash_attention_plain(q, k, v, causal=causal,
+                                            window=window)
+            got = fa.flash_attention(q, k, v, causal=causal, window=window)
+            torch.cuda.synchronize()
+            err = close(got, want, tol)
+            if dtype == torch.float32:
+                err_all = max(err_all, err)
+    log(f"phase flash sweeps: {len(FLASH_SWEEP)} shapes x (f32, bf16) "
+        f"within tolerance; f32 max |diff| {err_all:.3e}")
+
+    cfg = ARCHS[SERVE_ARCH]
+    h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    cap = SERVE_PROMPT + SERVE_GEN
+    shapes = [
+        ("prefill f32", (SERVE_BATCH, h, hkv, SERVE_PROMPT, SERVE_PROMPT,
+                         dh, True, -1), torch.float32),
+        ("decode f32", (SERVE_BATCH, h, hkv, 1, cap, dh, True, -1),
+         torch.float32),
+        ("prefill bf16", (SERVE_BATCH, h, hkv, SERVE_PROMPT, SERVE_PROMPT,
+                          dh, True, -1), torch.bfloat16),
+    ]
+    phases = []
+    for label, case, dtype in shapes:
+        b, h_, hkv_, sq, sk, dh_, causal, window = case
+        q, k, v = qkv(b, h_, hkv_, sq, sk, dh_, dtype)
+        tol = FLASH_F32_TOL if dtype == torch.float32 else FLASH_BF16_TOL
+        want = fa.flash_attention_plain(q, k, v, causal=causal,
+                                        window=window)
+        got = fa.flash_attention(q, k, v, causal=causal, window=window)
+        err = close(got, want, tol)
+        # SDPA aligns a causal mask top-left: it computes the same function
+        # only at Sq == Sk (prefill) or Sq == 1 without a mask (decode)
+        sdpa = functools.partial(
+            torch.nn.functional.scaled_dot_product_attention, q, k, v,
+            is_causal=sq > 1, enable_gqa=True)
+        close(sdpa(), want, tol if dtype != torch.float32 else 1e-4)
+        call = (lambda: fa.flash_attention(q, k, v, causal=causal,
+                                           window=window))
+        b_ms, b_by = flash_bound(case, dtype)
+        reps = 20 if sq > 1 else 200
+        ph = dict(shape=label, q=list(q.shape), k=list(k.shape),
+                  max_abs_err=err, call_ms=cuda_ms(call, reps),
+                  kernel_only_ms=kernel_only_ms(call, "flash_fwd_kernel"),
+                  plain_ms=cuda_ms(lambda: fa.flash_attention_plain(
+                      q, k, v, causal=causal, window=window), 3),
+                  library_ms=cuda_ms(sdpa, reps), bound_ms=b_ms,
+                  bound_by=b_by)
+        phases.append(ph)
+        log(f"phase flash {label}: q {tuple(q.shape)} k {tuple(k.shape)} "
+            f"max |diff| {err:.3e}; kernel {ph['kernel_only_ms']} ms, call "
+            f"{ph['call_ms']:.4f} ms, plain {ph['plain_ms']:.4f} ms, SDPA "
+            f"{ph['library_ms']:.4f} ms (bound {b_ms:.4f} ms, {b_by})")
+    head = phases[0]
+    results["flash_attention"] = dict(
+        shape=head["shape"], mismatches=0, max_abs_err=max(
+            err_all, *(p["max_abs_err"] for p in phases[:2])),
+        **{k: head[k] for k in ("call_ms", "kernel_only_ms", "plain_ms",
+                                "library_ms", "bound_ms", "bound_by")},
+        phases=phases)
+
+
+class AttendCheck:
+    """An attention layer's ``attend``: launches the flash kernel and, on
+    the layer's first prefill and first decode call, holds the kernel's
+    output against the plain version on the same q/k/v."""
+
+    def __init__(self):
+        self.err = {}
+
+    def __call__(self, q, k, v, *, causal, window):
+        out = fa.flash_attention(q, k, v, causal=causal, window=window)
+        kind = "prefill" if q.shape[2] > 1 else "decode"
+        if kind not in self.err:
+            self.err[kind] = close(out, fa.flash_attention_plain(
+                q, k, v, causal=causal, window=window), FLASH_F32_TOL)
+        return out
+
+
+def set_attend(params, fn) -> None:
+    for layer in params.layers:
+        layer.attn.attend = fn
+
+
+def serve_main_path(dev) -> dict:
+    """qwen3-4b at full width (f32) through the port's serving sequence:
+    ServeEngine(fused_egress=True), tenant-a and tenant-b on host 0, the
+    revocation, eviction and re-admission; then a decode step's launches,
+    wall time and device busy share, and the first group's logits against
+    a plain-attention run."""
+    cfg = replace(ARCHS[SERVE_ARCH], param_dtype="float32")
+    t0 = time.perf_counter()
+    params = registry.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    log(f"main serve: {SERVE_ARCH} at full width (f32): {cfg.n_layers} "
+        f"layers, d {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, "
+        f"dh {cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}; "
+        f"{n_params / 1e9:.3f} B parameters made in {init_s:.2f} s")
+    checks = [AttendCheck() for _ in params.layers]
+    for layer, chk in zip(params.layers, checks):
+        layer.attn.attend = chk
+    engine = ServeEngine(cfg, params, batch=SERVE_BATCH,
+                         cap=SERVE_PROMPT + SERVE_GEN, fused_egress=True,
+                         device=dev)
+
+    reset_launches()
+    demo = run_demo(engine, requests=SERVE_REQUESTS,
+                    prompt_len=SERVE_PROMPT, gen=SERVE_GEN, seed=SEED,
+                    log=lambda m: log(f"main serve: {m}"))
+    torch.cuda.synchronize()
+    counts = dict(launches)
+    log(f"main serve path launches: {counts}")
+    for name in ("flash_attention", "fabric_egress"):
+        if counts[name] == 0:
+            raise AssertionError(f"{name} never launched on the serving "
+                                 "path")
+    flash_err = {kind: max(c.err[kind] for c in checks)
+                 for kind in ("prefill", "decode")}
+    log(f"main serve: every layer's first prefill and first decode "
+        f"attention held against the plain version on its own q/k/v: max "
+        f"|diff| {flash_err}")
+    set_attend(params, fa.flash_attention)
+
+    # one steady decode step of tenant-b: launches, wall, device busy share
+    rng = np.random.default_rng(SEED + 4)
+    prompts = [rng.integers(3, cfg.vocab - 1, SERVE_PROMPT)
+               for _ in range(SERVE_BATCH)]
+    for p in prompts:
+        engine.submit("tenant-b", p)
+    engine.step(gen=SERVE_GEN, only="tenant-b")       # prefill + decode 1
+    reset_launches()
+    engine.step(gen=SERVE_GEN, only="tenant-b")
+    torch.cuda.synchronize()
+    per_step = {k: n for k, n in launches.items() if n}
+    log(f"main serve: launches in one decode step of one tenant: "
+        f"{per_step}")
+    if per_step.get("flash_attention") != cfg.n_layers or \
+            per_step.get("fabric_egress") != 1:
+        raise AssertionError(f"expected {cfg.n_layers} flash and 1 fabric "
+                             f"launch per decode step, got {per_step}")
+    step_ms = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        engine.step(gen=SERVE_GEN, only="tenant-b")
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            engine.step(gen=SERVE_GEN, only="tenant-b")
+        torch.cuda.synchronize()
+    device_ops = sorted(((e.key, _device_us(e) / 3 / 1e3)
+                         for e in prof.key_averages() if _device_us(e) > 0),
+                        key=lambda kv: -kv[1])
+    device_ms = sum(ms for _, ms in device_ops)
+    decode_ms = float(np.median(step_ms))
+    flash_ms = sum(ms for k, ms in device_ops if "flash_fwd_kernel" in k)
+    log(f"main serve decode step (batch {SERVE_BATCH}, one tenant): wall "
+        f"ms {[round(x, 3) for x in step_ms]} (median {decode_ms:.3f}, "
+        f"{SERVE_BATCH * 1e3 / decode_ms:.1f} tok/s); device busy "
+        f"{device_ms:.3f} ms ({100 * device_ms / decode_ms:.1f} %), flash "
+        f"{flash_ms:.3f} ms; top device ops "
+        f"{[(k[:48], round(v, 4)) for k, v in device_ops[:8]]}")
+
+    # the first group's prefill and first decode step, kernel against plain
+    group = [p for p, _ in demo["tenants"]["tenant-a"].done[:SERVE_BATCH]]
+    # the engine feeds the prefill's argmax to the first decode step and
+    # records what that step picks: its first generated token
+    gen0 = [g[0] for _, g in demo["tenants"]["tenant-a"].done[:SERVE_BATCH]]
+    toks = torch.from_numpy(np.stack(group).astype(np.int32)).to(dev)
+    cap = SERVE_PROMPT + SERVE_GEN
+    runs = {}
+    for name, fn in (("kernel", fa.flash_attention),
+                     ("plain", fa.flash_attention_plain)):
+        set_attend(params, fn)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        lg0, cache = registry.prefill(cfg, params, {"tokens": toks},
+                                      cache_dtype=torch.float32, cap=cap)
+        torch.cuda.synchronize()
+        pre_ms = (time.perf_counter() - t) * 1e3
+        # teacher-forced: both runs decode the kernel run's first token
+        nxt = (runs["kernel"][0] if runs else lg0[:, -1]).argmax(-1)[:, None]
+        lg1, _ = registry.decode_step(cfg, params, cache,
+                                      nxt.to(torch.int32), SERVE_PROMPT)
+        runs[name] = (lg0[:, -1], lg1[:, -1], pre_ms)
+        del cache
+    set_attend(params, fa.flash_attention)
+    (k0, k1, prefill_ms), (p0, p1, plain_prefill_ms) = \
+        runs["kernel"], runs["plain"]
+    logit_err = max(close(k0, p0, LOGITS_TOL), close(k1, p1, LOGITS_TOL))
+    same = bool((k0.argmax(-1) == p0.argmax(-1)).all()) and \
+        bool((k1.argmax(-1) == p1.argmax(-1)).all())
+    engine_tokens = k1.argmax(-1).tolist()
+    if not same or engine_tokens != gen0:
+        raise AssertionError(f"argmax tokens differ: kernel {engine_tokens}"
+                             f", engine {gen0}, plain agrees: {same}")
+    log(f"main serve logits: the first group's prefill and first decode "
+        f"step against plain attention: max |diff| {logit_err:.3e} "
+        f"(tolerance {LOGITS_TOL}), argmax tokens identical and equal to "
+        f"the engine's {gen0}; prefill wall {prefill_ms:.1f} ms "
+        f"(plain attention {plain_prefill_ms:.1f} ms)")
+    return dict(arch=SERVE_ARCH, params=n_params, init_s=init_s,
+                launches=counts, launches_per_decode_step=per_step,
+                tokens_per_s_continuous=demo["tokens_per_s"],
+                continuous_s=demo["continuous_s"],
+                decode_step_ms=step_ms, decode_step_median_ms=decode_ms,
+                decode_device_ms=device_ms, decode_flash_ms=flash_ms,
+                decode_device_ops=device_ops[:10], prefill_ms=prefill_ms,
+                flash_vs_plain=flash_err, logits_max_abs_diff=logit_err,
+                outcomes={k: demo[k] for k in (
+                    "continuous", "revoked", "coresident", "evicted",
+                    "readmitted", "replacement")})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -558,21 +868,32 @@ def main() -> int:
         if "registers" in line or "spill" in line or line.startswith("=="):
             log(f"  ptxas {line.strip()}")
 
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("f32 matmuls must not run in TF32")
     results: dict = {}
     kernel_phases(dev, results)
+    flash_phase(dev, results)
 
+    # main path 1: the checked egress path
     reset_launches()
     quickstart(dev)
     main = fabric_main_path(dev)
     counts = dict(launches)
-    log(f"main path launches: {counts}")
-    for name, n in counts.items():
-        if n == 0:
+    log(f"main egress path launches: {counts}")
+    for name in ("memcrypt", "permcheck", "checked_memcrypt",
+                 "fabric_egress"):
+        if counts[name] == 0:
             raise AssertionError(f"{name} never launched on the main path")
+    # main path 2: serving (counts reset and read inside)
+    serve = serve_main_path(dev)
+    for name, n in serve["launches"].items():
+        counts[name] += n
 
-    line = {"kernels": [], "main_path": main,
+    line = {"kernels": [], "main_path": main, "serve_path": serve,
             "card": smi, "peaks": {"bytes_per_s": PEAK_BYTES_PER_S,
                                    "int32_ops_per_s": ops_per_s,
+                                   "f32_flops": PEAK_F32_FLOPS,
+                                   "bf16_flops": PEAK_BF16_FLOPS,
                                    "sms": sms, "max_sm_mhz": mhz}}
     for name, r in results.items():
         src, replaces = SOURCES[name]

@@ -1,22 +1,27 @@
-"""State carried across between the JAX package and the port.
+"""State and weights carried across between the JAX package and the port.
 
-The system has no weights; what both packages compute on is state — the
-device permission table, shard and fabric views, the permission cache.
-These functions turn that state, given as numpy arrays (any object with
-the named array attributes: a JAX NamedTuple of arrays works, since
-``np.asarray`` reads it), into the port's tensors, and back again.  u32
-words keep their bit patterns: ``uint32`` in numpy, int32 in torch.
+The checked egress path computes on state — the device permission table,
+shard and fabric views, the permission cache; the serving path adds the
+decoder LM's parameters and its KV cache.  These functions turn either,
+given as numpy arrays (any object with the named array attributes: a JAX
+NamedTuple or pytree of arrays works, since ``np.asarray`` reads it), into
+the port's tensors and modules, and back again.  u32 words keep their bit
+patterns: ``uint32`` in numpy, int32 in torch.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from .configs.base import ArchConfig
 from .core.checker import PermCache
 from .core.fabric import FabricView
 from .core.table import PermissionTable, as_int32
 from .kernels import resolve_device
 from .kernels.permcheck import ShardView
+from .layers.attention import KVCache
+from .layers.common import param
+from .models import lm
 
 
 def u32_to_numpy(t) -> np.ndarray:
@@ -90,3 +95,59 @@ def perm_cache_to_numpy(c: PermCache) -> dict:
     return {"tag": c.tag.cpu().numpy(), "entry": c.entry.cpu().numpy(),
             "plru": u32_to_numpy(c.plru), "hits": int(c.hits),
             "misses": int(c.misses), "epoch": int(c.epoch)}
+
+
+# ---------------------------------------------------------------------------
+# the serving path: decoder-LM parameters and the KV cache
+# ---------------------------------------------------------------------------
+
+def _float_tensor(a, dtype, device) -> torch.Tensor:
+    """A numpy float array (bf16 arrays included: JAX's ``bfloat16`` numpy
+    dtype has no torch counterpart, so it crosses as its bits)."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(a))
+    return t.to(device=device, dtype=dtype)
+
+
+def lm_params_from_numpy(cfg: ArchConfig, tree, *, device=None
+                         ) -> lm.DenseLM:
+    """The reference's dense-LM parameter pytree (``embed.tok``, the
+    stacked ``units`` [n_layers, ...], ``final_norm``, ``head.w``), as
+    numpy arrays, -> the port's `DenseLM` with one module per layer."""
+    dev = resolve_device(device)
+    dt = cfg.pdtype
+    model = lm.DenseLM(cfg, None, "meta")
+    put = lambda a: param(_float_tensor(a, dt, dev))
+    model.tok = put(tree["embed"]["tok"])
+    model.final_norm = put(tree["final_norm"])
+    if not cfg.tie_embeddings:
+        model.head_w = put(tree["head"]["w"])
+    units = tree["units"]
+    for i, layer in enumerate(model.layers):
+        layer.ln1 = put(units["ln1"][i])
+        layer.ln2 = put(units["ln2"][i])
+        for name, arr in units["attn"].items():
+            setattr(layer.attn, name, put(arr[i]))
+        for name, arr in units["mlp"].items():
+            setattr(layer.mlp, name, put(arr[i]))
+    return model
+
+
+def kv_cache_from_numpy(cache, *, device=None) -> list[KVCache]:
+    """A reference cache (``k``/``v`` stacked [n_layers, B, n_kv, cap,
+    dh]) -> the port's per-layer `KVCache` list."""
+    dev = resolve_device(device)
+    k, v = np.asarray(cache.k), np.asarray(cache.v)
+    return [KVCache(_float_tensor(k[i], None, dev),
+                    _float_tensor(v[i], None, dev))
+            for i in range(k.shape[0])]
+
+
+def kv_cache_to_numpy(cache: list[KVCache]) -> dict:
+    """The port's per-layer cache as stacked f32 numpy ``k`` and ``v``
+    [n_layers, B, n_kv, cap, dh]."""
+    return {f: torch.stack([getattr(c, f) for c in cache])
+            .to("cpu", torch.float32).numpy() for f in ("k", "v")}

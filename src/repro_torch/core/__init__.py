@@ -8,8 +8,9 @@ Paper components -> modules:
   Permission cache    -> repro_torch.core.checker.PermCache
   Fabric manager      -> repro_torch.core.fm.FabricManager
   Sharded fabric      -> repro_torch.core.fabric.ShardedFabric
+  Shared tensor pool  -> repro_torch.core.pool.SharedTensorPool
 
-The LRU cache model, the pool and fault plans are not ported yet.
+The LRU cache model and fault plans are not ported yet.
 """
 from .bus import BISnpBus
 from .checker import (
@@ -34,6 +35,7 @@ from .crypto import arx_mac32, arx_mac64, derive_key, hmac_label
 from .fabric import FabricView, HostRuntime, ShardedFabric, stack_views
 from .fm import (BISnpEvent, FabricManager, FMUnavailable, JournalRecord,
                  Proposal)
+from .pool import GatherResult, Region, SharedTensorPool, checked_gather
 from .space import RING_KERNEL, RING_USER, SpaceEngine
 from .table import (
     ENTRY_BYTES,

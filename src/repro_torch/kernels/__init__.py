@@ -1,10 +1,12 @@
-"""Egress-path CUDA kernels (Space-Control permission check + memcrypt) for
-Hopper, plus the launch helpers every kernel wrapper in this package shares.
+"""The port's CUDA kernels for Hopper — the egress path (Space-Control
+permission check + memcrypt) and the serving path's flash attention — plus
+the launch helpers every kernel wrapper in this package shares.
 
 Each kernel is hand-written CUDA C++ under ``csrc/`` (built at first use by
 ``_build.py``) and ships with a plain PyTorch version of the same function
-(``ref.py``).  A wrapper given CPU tensors runs the plain version; given
-CUDA tensors it launches the kernel or raises — there is no fallback.
+(``ref.py``, or beside its wrapper).  A wrapper given CPU tensors runs the
+plain version; given CUDA tensors it launches the kernel or raises — there
+is no fallback.
 """
 from __future__ import annotations
 
@@ -15,7 +17,7 @@ import torch
 # plain version and counts nothing), so a run can show that its main path
 # went through the kernels.
 launches = {"memcrypt": 0, "permcheck": 0, "checked_memcrypt": 0,
-            "fabric_egress": 0}
+            "fabric_egress": 0, "flash_attention": 0}
 
 
 def reset_launches() -> None:

@@ -1,4 +1,4 @@
-"""Build and load the egress kernels' shared library.
+"""Build and load the port's kernel library (egress and flash attention).
 
 The CUDA sources under ``csrc/`` are compiled at first use with ``nvcc``
 for ``sm_90a`` — one ``nvcc`` per ``.cu`` file, all started together, then
@@ -22,12 +22,12 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / \
     "repro_torch_kernels"
-LIB_NAME = "libegress.so"
+LIB_NAME = "libkernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_P, _I32, _I64, _U32 = (ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64,
-                        ctypes.c_uint32)
+_P, _I32, _I64, _U32, _F32 = (ctypes.c_void_p, ctypes.c_int32,
+                              ctypes.c_int64, ctypes.c_uint32, ctypes.c_float)
 # C entry points: (name, argtypes); each returns cudaGetLastError()
 SIGNATURES = {
     "memcrypt_launch": [_P, _P, _I64, _U32, _U32, _U32, _P],
@@ -37,6 +37,10 @@ SIGNATURES = {
                                 _I32, _U32, _U32, _U32, _P, _P, _P],
     "fabric_egress_launch": [_P, _P, _I64, _I64, _I64, _P, _P, _P, _P, _P,
                              _I64, _P, _P, _I32, _U32, _U32, _P, _P, _P],
+    # q, k, v, o, dtype, (b, h, hkv, sq, sk, dh), 12 strides, scale,
+    # causal, window, block_q, stream
+    "flash_attention_launch": [_P, _P, _P, _P, _I32] + [_I64] * 18
+    + [_F32, _I32, _I32, _I32, _P],
 }
 
 _lock = threading.Lock()
@@ -62,7 +66,7 @@ def nvcc_path() -> str:
             return str(Path(cand, "bin", "nvcc"))
     found = shutil.which("nvcc")
     if found is None:
-        raise RuntimeError("nvcc not found: the egress kernels are built "
+        raise RuntimeError("nvcc not found: the port's kernels are built "
                            "from source on a machine with the CUDA toolkit")
     return found
 

@@ -1,13 +1,16 @@
-"""Plain PyTorch versions of the egress kernels.
+"""Plain PyTorch versions of the egress kernels, and the attention oracle.
 
 Each CUDA kernel in this package must match its plain version here bit for
 bit; on CPU tensors the kernel wrappers run these instead.  They are written
 straight from the definitions (signed range compares, an explicit counter
 keystream), not from the kernels' diff-form arithmetic, so they stay an
 independent check.  u32 words travel as int32 bit patterns.
+`flash_attention` mirrors the reference's float oracle; the flash kernel's
+own plain version lives beside its wrapper (``flash_attention.py``).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..core.crypto import arx_mac32
@@ -115,3 +118,28 @@ def checked_memcrypt(data, ext_addrs, starts, ends, permbits, *, hwpid: int,
                                 torch.where(idx < 0, FAULT_NO_ENTRY,
                                             FAULT_PERM))))
     return out, fault.to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# flash attention (the serving path's attention kernel)
+# ---------------------------------------------------------------------------
+
+def flash_attention(q, k, v, *, causal: bool = True,
+                    scale: float | None = None):
+    """Oracle: plain softmax attention. q,k,v: [B, H, S, D] (k/v may have
+    fewer heads = GQA; heads are repeated).  Causal rows align with the
+    end of the keys; no window (the reference's oracle has none)."""
+    if scale is None:
+        scale = 1.0 / np.sqrt(q.shape[-1])
+    hq, hk = q.shape[1], k.shape[1]
+    if hq != hk:
+        k = k.repeat_interleave(hq // hk, dim=1)
+        v = v.repeat_interleave(hq // hk, dim=1)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q, k) * scale
+    if causal:
+        sq, sk = q.shape[2], k.shape[2]
+        mask = torch.ones((sq, sk), dtype=torch.bool,
+                          device=q.device).tril(diagonal=sk - sq)
+        logits = torch.where(mask, logits, -torch.inf)
+    probs = torch.softmax(logits.to(torch.float32), dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", probs.to(v.dtype), v)

@@ -16,6 +16,7 @@ from repro_torch.core import ShardedFabric, pack_ext_addr
 from repro_torch.core.fabric import stack_views
 from repro_torch.kernels import launches, ops
 from repro_torch.kernels import fabric_egress as tfe
+from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import memcrypt as tmc
 from repro_torch.kernels import permcheck as tpc
 from torch_parity import (assert_equal, cuda, mk_ext, mk_table,  # noqa: F401
@@ -135,3 +136,63 @@ def test_entry_points_default_to_the_card(cuda):  # noqa: F811
         assert a.device.type == "cuda"
         assert_equal(a, b)
         assert_equal(fa, fb)
+
+
+def _qkv(rng, b, h, hkv, sq, sk, dh, dtype, device):
+    mk = lambda *shape: torch.from_numpy(
+        rng.normal(size=shape).astype(np.float32)).to(device, dtype)
+    return mk(b, h, sq, dh), mk(b, hkv, sk, dh), mk(b, hkv, sk, dh)
+
+
+# (b, h, hkv, sq, sk, dh, causal, window): the reference's sweeps
+# (tests/test_kernels_flash.py) plus the decode and window edge cases
+FLASH_CASES = [
+    (2, 4, 4, 128, 128, 64, True, -1),
+    (2, 4, 4, 256, 384, 64, True, -1),
+    (2, 4, 4, 200, 200, 64, True, -1),
+    (1, 8, 2, 128, 128, 64, True, -1),
+    (1, 4, 1, 128, 128, 64, True, -1),
+    (1, 2, 2, 128, 256, 64, False, -1),
+    (1, 2, 2, 256, 256, 64, True, 64),
+    (1, 2, 2, 256, 256, 64, True, 160),
+    (1, 2, 2, 128, 128, 128, True, -1),
+    (2, 4, 2, 1, 77, 32, True, -1),
+    (2, 4, 2, 1, 300, 256, True, 40),
+    (1, 4, 1, 37, 100, 128, True, 16),
+    (1, 4, 2, 9, 40, 64, True, 8),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel(cuda, case, dtype):  # noqa: F811
+    b, h, hkv, sq, sk, dh, causal, window = case
+    rng = np.random.default_rng(sq * 7 + sk)
+    q, k, v = _qkv(rng, b, h, hkv, sq, sk, dh, dtype, cuda)
+    want = tfa.flash_attention_plain(q, k, v, causal=causal, window=window)
+    tol = 2e-5 if dtype == torch.float32 else 3e-2
+    got = _launched("flash_attention", lambda: tfa.flash_attention(
+        q, k, v, causal=causal, window=window))
+    assert got.dtype == dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.cuda
+def test_flash_attention_kernel_strided_operands(cuda):  # noqa: F811
+    """The decode layout: q as a [B,S,H,dh] projection transposed, k/v a
+    slice of a larger cache — no copies, same result; the output keeps
+    q's layout."""
+    rng = np.random.default_rng(11)
+    q4 = torch.from_numpy(rng.normal(size=(3, 1, 8, 128)).astype(
+        np.float32)).to(cuda)
+    cache = torch.from_numpy(rng.normal(size=(2, 3, 2, 500, 128)).astype(
+        np.float32)).to(cuda)
+    q, k, v = q4.transpose(1, 2), cache[0, :, :, :321], cache[1, :, :, :321]
+    got = _launched("flash_attention", lambda: tfa.flash_attention(
+        q, k, v, causal=True, window=100))
+    assert got.transpose(1, 2).is_contiguous()
+    want = tfa.flash_attention_plain(q.contiguous(), k.contiguous(),
+                                     v.contiguous(), causal=True, window=100)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)

@@ -1,7 +1,7 @@
 """Import hygiene of the port: nothing under ``src/repro_torch/``, and not
 ``chip_smoke.py``, imports JAX or the JAX package; importing the port's
-core and ops loads neither; and the entry points refuse to run without
-CUDA unless the caller asks for the CPU."""
+core, ops, models and serving launcher loads neither; and the entry points
+refuse to run without CUDA unless the caller asks for the CPU."""
 import ast
 import subprocess
 import sys
@@ -35,7 +35,8 @@ def test_port_sources_import_neither_jax_nor_the_jax_package():
 
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch.core, repro_torch.kernels.ops, "
-            "repro_torch.convert\n"
+            "repro_torch.convert, repro_torch.configs, "
+            "repro_torch.models.registry, repro_torch.launch.serve\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]\n"
             "assert not bad, bad\n")
@@ -62,3 +63,23 @@ def test_entry_points_need_cuda_unless_asked_for_the_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         FabricManager(1 << 10, 8).table.to_device()
     assert ShardedFabric(1 << 10, 64, 2, device="cpu").device.type == "cpu"
+
+
+def test_serving_entry_points_need_cuda_unless_asked_for_the_cpu(
+        monkeypatch):
+    from repro_torch.configs import ARCHS, smoke_config
+    from repro_torch.launch import serve
+    from repro_torch.models import registry
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = smoke_config(ARCHS["qwen3-4b"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        registry.init_params(cfg, torch.Generator())
+    params = registry.init_params(cfg, torch.Generator(), "cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        registry.model_module(cfg).init_cache(cfg, 1, 8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.ServeEngine(cfg, params, batch=1, cap=8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--requests", "2", "--prompt-len", "4", "--gen", "2"])
+    assert serve.ServeEngine(cfg, params, batch=1, cap=8,
+                             device="cpu").device.type == "cpu"
