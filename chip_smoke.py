@@ -13,8 +13,13 @@ CUDA toolkit.  Phases, each reported on its own line:
   3. kernel phases — each kernel held against its plain PyTorch version on
      the card (the egress kernels bit-exact; flash attention within the
      reference's 2e-5 (f32) / 3e-2 (bf16) on the reference's sweeps and at
-     qwen3-4b's serving shapes), and timed beside its bound and, where one
-     PyTorch call computes the same function, that call;
+     qwen3-4b's serving shapes, prefill and decode, f32 and bf16), and
+     timed beside its bound and, where one PyTorch call computes the same
+     function, that call.  The flash shapes are timed L2-cold, over a
+     rotation of q/k/v sets larger than twice the L2 (as each layer of a
+     decode step finds its own cache), with the L2-warm time beside; each
+     regime must run exactly its own kernels (``FLASH_PATHS``), and the f32
+     prefill kernel must not spill;
   4. main path 1, the checked egress path — the quickstart flow on one
      host through the port's FabricManager and ops, then a 255-host /
      127-tenant ShardedFabric (1 GiB SDM, 8192-entry table, 4096 words per
@@ -39,6 +44,7 @@ from __future__ import annotations
 
 import functools
 import json
+import re
 import subprocess
 import sys
 import time
@@ -122,19 +128,31 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def kernel_only_ms(fn, kernel: str, reps: int = 5):
-    """Device time of the CUDA kernel whose symbol contains ``kernel`` per
-    call of ``fn`` (the wrapper's helper ops excluded), from
-    `torch.profiler`; None when the profiler records no device time."""
+def kernel_times(fn, kernel: str, reps: int = 5) -> dict:
+    """Device time (ms) per call of ``fn`` of each CUDA kernel whose symbol
+    contains ``kernel`` (the wrapper's helper ops excluded), from
+    `torch.profiler`; empty when the profiler records no device time (one
+    retry: the profiler now and then returns no device events)."""
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(_device_us(e) for e in prof.key_averages() if kernel in e.key)
-    return total / reps / 1e3 if total > 0 else None
+    for _ in range(2):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        times = {e.key: _device_us(e) / reps / 1e3
+                 for e in prof.key_averages()
+                 if kernel in e.key and _device_us(e) > 0}
+        if times:
+            return times
+    return {}
+
+
+def kernel_only_ms(fn, kernel: str, reps: int = 5):
+    """Device time of the CUDA kernels whose symbols contain ``kernel`` per
+    call of ``fn``; None when the profiler records no device time."""
+    return sum(kernel_times(fn, kernel, reps).values()) or None
 
 
 def _device_us(evt) -> float:
@@ -557,6 +575,7 @@ def fabric_main_path(dev) -> dict:
 # TF32), 989 TFLOP/s in bf16 on the tensor cores.
 PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
+L2_BYTES = 50 * 2**20       # H100 SXM L2 cache (NVIDIA H100 datasheet)
 FLASH_F32_TOL, FLASH_BF16_TOL = 2e-5, 3e-2   # tests/test_kernels_flash.py
 # (b, h, hkv, sq, sk, dh, causal, window): the reference's flash sweeps
 # (ragged, GQA/MQA, non-causal, window, dh 128) plus rows on the kernel's
@@ -583,6 +602,49 @@ def close(got, want, tol: float) -> float:
     if not bool(((g - w).abs() <= tol + tol * w.abs()).all()):
         raise AssertionError(f"max |diff| {err} beyond rtol = atol = {tol}")
     return err
+
+
+# the kernels each flash regime must run (flash_attention.cu)
+FLASH_PATHS = {"decode": ("flash_decode_split_kernel",
+                          "flash_decode_combine_kernel"),
+               "prefill f32": ("flash_prefill_f32_kernel",),
+               "prefill bf16": ("flash_prefill_bf16_kernel",)}
+
+
+def flash_symbol(key: str) -> str:
+    """``flash_..._kernel<...>`` out of a profiler key or a demangled
+    symbol."""
+    m = re.search(r"flash_\w+_kernel(<[^>]*>)?", key)
+    return m.group(0) if m else key
+
+
+def check_flash_build(build_log: str) -> None:
+    """ptxas' registers and spills of every flash kernel, one line each;
+    raises if the f32 prefill kernel (the CUDA-core path) spills."""
+    entry, spills = None, {}
+    for line in build_log.splitlines():
+        m = re.search(r"entry function '(\w+)'", line)
+        if m:
+            entry = m.group(1)
+            continue
+        if entry is None or "flash_" not in entry:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills[entry] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            name = re.search(r"flash_(decode|prefill)_[a-z0-9]+_kernel",
+                             entry).group(0)
+            args = ["bf16" if "bfloat16" in entry else "f32"] + re.findall(
+                r"Li(\d+)E", entry)     # dtype, dh[, rows per block]
+            log(f"  flash build: {name}<{', '.join(args)}>: {m.group(1)} "
+                f"registers, {spills.get(entry, 0)} bytes spilled")
+            entry = None
+    bad = [e for e, n in spills.items() if "prefill_f32" in e and n]
+    if bad:
+        raise AssertionError(f"the f32 prefill kernel spills: {bad}")
 
 
 def flash_work(b, h, hkv, sq, sk, dh, causal, window, itemsize):
@@ -643,8 +705,11 @@ def flash_phase(dev, results: dict) -> None:
          torch.float32),
         ("prefill bf16", (SERVE_BATCH, h, hkv, SERVE_PROMPT, SERVE_PROMPT,
                           dh, True, -1), torch.bfloat16),
+        ("decode bf16", (SERVE_BATCH, h, hkv, 1, cap, dh, True, -1),
+         torch.bfloat16),
     ]
     phases = []
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
     for label, case, dtype in shapes:
         b, h_, hkv_, sq, sk, dh_, causal, window = case
         q, k, v = qkv(b, h_, hkv_, sq, sk, dh_, dtype)
@@ -653,28 +718,69 @@ def flash_phase(dev, results: dict) -> None:
                                         window=window)
         got = fa.flash_attention(q, k, v, causal=causal, window=window)
         err = close(got, want, tol)
+        # distinct q/k/v sets, more bytes in all than the L2 holds twice:
+        # cycling through them, each call finds its operands cold in L2, as
+        # each of a decode step's layers finds its own cache
+        set_bytes = sum(t.numel() * t.element_size() for t in (q, k, v))
+        sets = [(q, k, v)] + [
+            tuple(torch.randn(t.shape, generator=gen, device=dev,
+                              dtype=torch.float32).to(dtype)
+                  for t in (q, k, v))
+            for _ in range(max(2, -(-2 * L2_BYTES // set_bytes)))]
+        for qs, ks, vs in sets[1:2]:
+            close(fa.flash_attention(qs, ks, vs, causal=causal,
+                                     window=window),
+                  fa.flash_attention_plain(qs, ks, vs, causal=causal,
+                                           window=window), tol)
+        turn = iter(range(1 << 62))
+
+        def cold():
+            qs, ks, vs = sets[next(turn) % len(sets)]
+            return fa.flash_attention(qs, ks, vs, causal=causal,
+                                      window=window)
+
         # SDPA aligns a causal mask top-left: it computes the same function
         # only at Sq == Sk (prefill) or Sq == 1 without a mask (decode)
         sdpa = functools.partial(
             torch.nn.functional.scaled_dot_product_attention, q, k, v,
             is_causal=sq > 1, enable_gqa=True)
         close(sdpa(), want, tol if dtype != torch.float32 else 1e-4)
-        call = (lambda: fa.flash_attention(q, k, v, causal=causal,
+
+        def sdpa_cold():
+            qs, ks, vs = sets[next(turn) % len(sets)]
+            return torch.nn.functional.scaled_dot_product_attention(
+                qs, ks, vs, is_causal=sq > 1, enable_gqa=True)
+
+
+        warm = (lambda: fa.flash_attention(q, k, v, causal=causal,
                                            window=window))
         b_ms, b_by = flash_bound(case, dtype)
-        reps = 20 if sq > 1 else 200
+        reps = len(sets) * (4 if sq > 1 else 40)
+        times = {flash_symbol(key): ms for key, ms in kernel_times(
+            cold, "flash_", reps=len(sets) * 2).items()}
+        path = FLASH_PATHS["decode" if sq <= fa.DECODE_MAX_SQ else label]
+        ran = {re.sub(r"<.*", "", key) for key in times}
+        if times and ran != set(path):
+            raise AssertionError(f"flash {label} ran {sorted(times)}, not "
+                                 f"{path}")
         ph = dict(shape=label, q=list(q.shape), k=list(k.shape),
-                  max_abs_err=err, call_ms=cuda_ms(call, reps),
-                  kernel_only_ms=kernel_only_ms(call, "flash_fwd_kernel"),
+                  max_abs_err=err, sets=len(sets), set_mb=set_bytes / 1e6,
+                  call_ms=cuda_ms(cold, reps), kernels=times,
+                  kernel_only_ms=sum(times.values()) or None,
+                  warm_ms=kernel_only_ms(warm, "flash_"),
                   plain_ms=cuda_ms(lambda: fa.flash_attention_plain(
                       q, k, v, causal=causal, window=window), 3),
-                  library_ms=cuda_ms(sdpa, reps), bound_ms=b_ms,
+                  library_ms=cuda_ms(sdpa_cold, reps), bound_ms=b_ms,
                   bound_by=b_by)
         phases.append(ph)
         log(f"phase flash {label}: q {tuple(q.shape)} k {tuple(k.shape)} "
-            f"max |diff| {err:.3e}; kernel {ph['kernel_only_ms']} ms, call "
-            f"{ph['call_ms']:.4f} ms, plain {ph['plain_ms']:.4f} ms, SDPA "
-            f"{ph['library_ms']:.4f} ms (bound {b_ms:.4f} ms, {b_by})")
+            f"max |diff| {err:.3e}; L2-cold over {len(sets)} sets of "
+            f"{set_bytes / 1e6:.1f} MB: kernel {ph['kernel_only_ms']} ms, "
+            f"call {ph['call_ms']:.4f} ms; L2-warm kernel {ph['warm_ms']} "
+            f"ms; plain {ph['plain_ms']:.4f} ms, SDPA (cold) "
+            f"{ph['library_ms']:.4f} ms (bound {b_ms:.4f} ms, {b_by}); "
+            f"kernels {times}")
+        del sets
     head = phases[0]
     results["flash_attention"] = dict(
         shape=head["shape"], mismatches=0, max_abs_err=max(
@@ -783,7 +889,7 @@ def serve_main_path(dev) -> dict:
                         key=lambda kv: -kv[1])
     device_ms = sum(ms for _, ms in device_ops)
     decode_ms = float(np.median(step_ms))
-    flash_ms = sum(ms for k, ms in device_ops if "flash_fwd_kernel" in k)
+    flash_ms = sum(ms for k, ms in device_ops if "flash_" in k)
     log(f"main serve decode step (batch {SERVE_BATCH}, one tenant): wall "
         f"ms {[round(x, 3) for x in step_ms]} (median {decode_ms:.3f}, "
         f"{SERVE_BATCH * 1e3 / decode_ms:.1f} tok/s); device busy "
@@ -865,8 +971,10 @@ def main() -> int:
     log(f"build: {len(_build.sources())} sources -> {_build.LIB_NAME} in "
         f"{time.perf_counter() - t:.2f} s")
     for line in _build.build_log().splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
+        if "registers" in line or "spill" in line or line.startswith("==") \
+                or "entry function" in line:
             log(f"  ptxas {line.strip()}")
+    check_flash_build(_build.build_log())
 
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("f32 matmuls must not run in TF32")

@@ -38,9 +38,9 @@ SIGNATURES = {
     "fabric_egress_launch": [_P, _P, _I64, _I64, _I64, _P, _P, _P, _P, _P,
                              _I64, _P, _P, _I32, _U32, _U32, _P, _P, _P],
     # q, k, v, o, dtype, (b, h, hkv, sq, sk, dh), 12 strides, scale,
-    # causal, window, block_q, stream
+    # causal, window, workspace, (splits, chunk, k_begin, k_end), stream
     "flash_attention_launch": [_P, _P, _P, _P, _I32] + [_I64] * 18
-    + [_F32, _I32, _I32, _I32, _P],
+    + [_F32, _I32, _I32, _P, _I32, _I32, _I32, _I32, _P],
 }
 
 _lock = threading.Lock()

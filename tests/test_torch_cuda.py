@@ -160,6 +160,20 @@ FLASH_CASES = [
     (2, 4, 2, 1, 300, 256, True, 40),
     (1, 4, 1, 37, 100, 128, True, 16),
     (1, 4, 2, 9, 40, 64, True, 8),
+    # the decode path: qwen3-4b's serving step, Sq 2 and 16 with G = 4
+    (4, 32, 8, 1, 1056, 128, True, -1),
+    (2, 8, 2, 2, 300, 128, True, -1),
+    (2, 8, 2, 16, 500, 64, True, -1),
+    # a 9th entry forces split chunks from key 0: the splits before the
+    # window are fully masked for every row and must weigh exactly 0
+    (1, 8, 2, 16, 600, 128, True, 40, 64),
+    (2, 4, 2, 1, 1000, 32, True, 100, 64),
+    # prefill with ragged Sq and a window at dh 64, 128, 256
+    (1, 4, 2, 200, 200, 64, True, 50),
+    (1, 4, 2, 200, 260, 128, True, 70),
+    (1, 4, 2, 200, 200, 256, True, 33),
+    # prefill at qwen3-4b's serving shape
+    (4, 32, 8, 1024, 1024, 128, True, -1),
 ]
 
 
@@ -167,13 +181,18 @@ FLASH_CASES = [
 @pytest.mark.parametrize("case", FLASH_CASES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel(cuda, case, dtype):  # noqa: F811
-    b, h, hkv, sq, sk, dh, causal, window = case
+    b, h, hkv, sq, sk, dh, causal, window = case[:8]
     rng = np.random.default_rng(sq * 7 + sk)
     q, k, v = _qkv(rng, b, h, hkv, sq, sk, dh, dtype, cuda)
     want = tfa.flash_attention_plain(q, k, v, causal=causal, window=window)
     tol = 2e-5 if dtype == torch.float32 else 3e-2
-    got = _launched("flash_attention", lambda: tfa.flash_attention(
-        q, k, v, causal=causal, window=window))
+    if len(case) > 8:
+        plan = tfa.SplitPlan(-(-sk // case[8]), case[8], 0, sk, 0)
+        call = (lambda: tfa._launch(q, k, v, causal, window, plan))
+    else:
+        call = (lambda: tfa.flash_attention(q, k, v, causal=causal,
+                                            window=window))
+    got = _launched("flash_attention", call)
     assert got.dtype == dtype and got.shape == q.shape
     torch.testing.assert_close(got.float(), want.float(), rtol=tol,
                                atol=tol)
@@ -196,3 +215,19 @@ def test_flash_attention_kernel_strided_operands(cuda):  # noqa: F811
     want = tfa.flash_attention_plain(q.contiguous(), k.contiguous(),
                                      v.contiguous(), causal=True, window=100)
     torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.cuda
+def test_flash_attention_refuses_misaligned_operands(cuda):  # noqa: F811
+    """The kernels copy 16-byte vectors: a q whose base is 4 bytes off, or
+    k/v rows 129 floats apart, raise ValueError and launch nothing."""
+    rng = np.random.default_rng(12)
+    q, k, v = _qkv(rng, 1, 4, 2, 1, 64, 128, torch.float32, cuda)
+    wide = torch.zeros(1, 4, 1, 129, device=cuda)
+    ragged = torch.zeros(1, 2, 64, 129, device=cuda)
+    before = launches["flash_attention"]
+    for args in ((wide[..., 1:], k, v), (q, ragged[..., :128], v),
+                 (q, k, ragged[..., 1:])):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            tfa.flash_attention(*args)
+    assert launches["flash_attention"] == before
