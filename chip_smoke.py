@@ -9,17 +9,19 @@ CUDA toolkit.  Phases, each reported on its own line:
 
   1. device — the card as torch and ``nvidia-smi`` name it, power limit;
   2. build — the five kernels compiled from ``src/repro_torch/kernels/
-     csrc`` (nvcc, sm_90a), with ptxas' register and spill lines;
+     csrc`` (nvcc, sm_90a), with ptxas' register and spill lines; the two
+     search kernels (permcheck, fabric_egress) must not spill;
   3. kernel phases — each kernel held against its plain PyTorch version on
      the card (the egress kernels bit-exact; flash attention within the
      reference's 2e-5 (f32) / 3e-2 (bf16) on the reference's sweeps and at
      qwen3-4b's serving shapes, prefill and decode, f32 and bf16), and
      timed beside its bound and, where one PyTorch call computes the same
-     function, that call.  The flash shapes are timed L2-cold, over a
-     rotation of q/k/v sets larger than twice the L2 (as each layer of a
-     decode step finds its own cache), with the L2-warm time beside; each
-     regime must run exactly its own kernels (``FLASH_PATHS``), and the f32
-     prefill kernel must not spill;
+     function, that call.  A lookup's bound counts the probes of a search
+     of the sorted shard (``search_probes``).  The flash shapes are timed
+     L2-cold, over a rotation of q/k/v sets larger than twice the L2 (as
+     each layer of a decode step finds its own cache), with the L2-warm
+     time beside; each regime must run exactly its own kernels
+     (``FLASH_PATHS``), and the f32 prefill kernel must not spill;
   4. main path 1, the checked egress path — the quickstart flow on one
      host through the port's FabricManager and ops, then a 255-host /
      127-tenant ShardedFabric (1 GiB SDM, 8192-entry table, 4096 words per
@@ -28,10 +30,11 @@ CUDA toolkit.  Phases, each reported on its own line:
   5. main path 2, serving — qwen3-4b at full width (f32 parameters made on
      the card from a seed) through ``ServeEngine(fused_egress=True)``: the
      serving CLI's sequence (two co-resident tenants, revocation, eviction,
-     re-admission) with each layer's first prefill and decode attention
-     held against the plain version, then one decode step's launches, wall
-     time and device busy share, and the first group's logits against a
-     plain-attention run.
+     re-admission) with each layer's first prefill and decode attention,
+     and every fabric launch's words and fault codes, held against the
+     plain version; then one decode step's launches, wall time and device
+     busy share, and the first group's logits against a plain-attention
+     run.
   Each main path's kernel launch counts are zeroed just before it and read
   just after: each of its kernels must have launched.
 
@@ -84,9 +87,7 @@ PEAK_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_CLOCK_PER_SM = 64
 KEYSTREAM_OPS = 52      # per word: 6 setup, 12 rounds x (add, rotate, xor),
 #                         7 key adds, 2 position, 1 data XOR (egress.cuh)
-LOOKUP_OPS = 4          # per (address, entry): sub, 2 compares, select/or
-COVER_OPS = 3           # per (word, entry) without the index
-SUMMARY_OPS = 2         # per (address, tile) of the hier summary test
+PROBE_OPS = 3           # per probe of a sorted search: compare, select, add
 INT32_MAX = np.iinfo(np.int32).max
 
 SDM_PAGES = 1 << 18     # 1 GiB SDM at 4 KiB pages
@@ -196,12 +197,11 @@ def table_bytes(view) -> float:
 def fabric_bound(ext, fault, view) -> tuple[float, str]:
     """Bound of one fabric egress over this data: 16 bytes per word (data
     and address in, word and fault out), the live table, 8 bytes per row
-    (hwpid, flat/hier choice); the lookup on every candidate entry and the
+    (hwpid, flat/hier choice); the search's probes on every word and the
     keystream on the granted words."""
-    n_cand, n_summ = lookup_work(ext & 0xFFFFFF, view)
     return bound(16 * ext.numel() + table_bytes(view) + 8 * ext.shape[0],
-                 KEYSTREAM_OPS * int((fault == 0).sum()) + COVER_OPS * n_cand
-                 + SUMMARY_OPS * n_summ)
+                 KEYSTREAM_OPS * int((fault == 0).sum())
+                 + PROBE_OPS * search_probes(ext & 0xFFFFFF, view))
 
 
 def compare(name: str, got, want) -> tuple[int, int]:
@@ -248,17 +248,23 @@ def live_per_tile(view_starts):
         *view_starts.shape[:-1], -1, pc.ENTRY_TILE).sum(-1)
 
 
-def lookup_work(pages, view) -> tuple[float, float]:
-    """(entries, tile summaries) the lookup must evaluate for this data:
-    per address, the live entries of every tile whose [min, max) window
-    holds its page, and the summaries of its shard's live tiles."""
-    live = live_per_tile(view.starts)
-    cand = (pages[..., None] >= view.tile_min[..., None, :]) & \
-        (pages[..., None] < view.tile_max[..., None, :])
-    n_cand = float((cand.to(torch.float64)
-                    * live[..., None, :].to(torch.float64)).sum())
-    n_summ = float(((live > 0).sum(-1) * pages.shape[-1]).sum())
-    return n_cand, n_summ
+def ceil_log2(x: torch.Tensor) -> torch.Tensor:
+    """ceil(log2 x) elementwise, 0 for x <= 1."""
+    return torch.ceil(torch.log2(x.clamp(min=1).to(torch.float64)))
+
+
+def search_probes(pages, view) -> float:
+    """Probes a search of the sorted shard needs for this data: per address
+    ceil(log2 live tiles) to find the last live tile whose first start is
+    at or below its page, ceil(log2 live entries of that tile) to find the
+    entry, and 1 to read that entry's end and permission bits.  ``pages``
+    [..., B] against a view with starts [..., N]."""
+    live = live_per_tile(view.starts)                           # [..., T]
+    tile = (pages[..., None] >= view.tile_min[..., None, :]).sum(-1) - 1
+    in_tile = torch.take_along_dim(live, tile.clamp(min=0), dim=-1)
+    in_tile = torch.where(tile >= 0, in_tile, 0)
+    live_tiles = (live > 0).sum(-1, keepdim=True)
+    return float((ceil_log2(live_tiles) + ceil_log2(in_tile) + 1).sum())
 
 
 def library_permcheck(ext, starts, ends, permbits, hwpid: int, need: int):
@@ -305,9 +311,8 @@ def kernel_phases(dev, results: dict) -> None:
     for kind in ("hot", "uniform"):
         ext = torch.from_numpy(trace(rng, starts, b, sdm, kind, 3)).to(dev)
         chosen = pc.selected_mode(ext, view)
-        n_cand, n_summ = lookup_work(ext & 0xFFFFFF, view)
         b_ms, b_by = bound(9 * b + table_bytes(view),
-                           LOOKUP_OPS * n_cand + SUMMARY_OPS * n_summ)
+                           PROBE_OPS * search_probes(ext & 0xFFFFFF, view))
         want = pc.permcheck_view_plain(ext, view, hwpid=3, need=1)
         plain_ms = cuda_ms(lambda: pc.permcheck_view_plain(
             ext, view, hwpid=3, need=1), 1)
@@ -354,11 +359,10 @@ def kernel_phases(dev, results: dict) -> None:
         mism_all, err_all = mism_all + m, max(err_all, e)
         faults = torch.bincount(want[1], minlength=6).tolist()
         fault_mix += faults
-        n_cand, n_summ = lookup_work(ext & 0xFFFFFF, view)
         n_ok = int((want[1] == 0).sum())
         b_ms, b_by = bound(16 * b + table_bytes(view),
-                           KEYSTREAM_OPS * n_ok + COVER_OPS * n_cand
-                           + SUMMARY_OPS * n_summ)
+                           KEYSTREAM_OPS * n_ok
+                           + PROBE_OPS * search_probes(ext & 0xFFFFFF, view))
         call = (lambda: mc.checked_memcrypt_view(d, ext, view, **args))
         ms = cuda_ms(call, 5)
         plain_ms = cuda_ms(lambda: mc.checked_memcrypt_view_plain(
@@ -647,6 +651,41 @@ def check_flash_build(build_log: str) -> None:
         raise AssertionError(f"the f32 prefill kernel spills: {bad}")
 
 
+# the two search kernels (egress.cuh lane_search), each in its 16-byte
+# (WIDE) and its scalar instantiation
+SEARCH_KERNELS = ("permcheck_kernel", "fabric_egress_kernel")
+
+
+def check_search_build(build_log: str) -> None:
+    """ptxas' registers and spills of each search kernel instantiation, one
+    line each; raises if one spills or is missing from the log."""
+    entry, spills, seen = None, {}, set()
+    for line in build_log.splitlines():
+        m = re.search(r"entry function '(\w+)'", line)
+        if m:
+            entry = m.group(1) if any(k in m.group(1)
+                                      for k in SEARCH_KERNELS) else None
+            continue
+        if entry is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills[entry] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            name = next(k for k in SEARCH_KERNELS if k in entry)
+            wide = "true" if "ILb1E" in entry else "false"
+            seen.add(name)
+            log(f"  search build: {name}<WIDE={wide}>: {m.group(1)} "
+                f"registers, {spills.get(entry, 0)} bytes spilled")
+            entry = None
+    bad = [e for e, n in spills.items() if n]
+    if bad or seen != set(SEARCH_KERNELS):
+        raise AssertionError(f"search kernels spill ({bad}) or are missing "
+                             f"from the build log (seen {sorted(seen)})")
+
+
 def flash_work(b, h, hkv, sq, sk, dh, causal, window, itemsize):
     """(bytes, flops) the attention function needs: q, k, v and o once;
     4 * dh FLOPs per visible (query, key) pair."""
@@ -807,6 +846,25 @@ class AttendCheck:
         return out
 
 
+class FabricCheck:
+    """Stands in for ``fabric_egress`` during the serving run: launches the
+    kernel and holds each launch's words and fault codes against the plain
+    version on the same inputs."""
+
+    def __init__(self):
+        self.kernel = fe.fabric_egress
+        self.calls = 0
+        self.words = 0
+
+    def __call__(self, data, ext_addrs, view, **kw):
+        got = self.kernel(data, ext_addrs, view, **kw)
+        compare("fabric_egress (serving)", got,
+                fe.fabric_egress_plain(data, ext_addrs, view, **kw))
+        self.calls += 1
+        self.words += got[0].numel()
+        return got
+
+
 def set_attend(params, fn) -> None:
     for layer in params.layers:
         layer.attn.attend = fn
@@ -836,13 +894,24 @@ def serve_main_path(dev) -> dict:
                          cap=SERVE_PROMPT + SERVE_GEN, fused_egress=True,
                          device=dev)
 
+    fabric_check = FabricCheck()
+    fe.fabric_egress = fabric_check    # ShardedFabric.step_egress's kernel
     reset_launches()
-    demo = run_demo(engine, requests=SERVE_REQUESTS,
-                    prompt_len=SERVE_PROMPT, gen=SERVE_GEN, seed=SEED,
-                    log=lambda m: log(f"main serve: {m}"))
-    torch.cuda.synchronize()
-    counts = dict(launches)
+    try:
+        demo = run_demo(engine, requests=SERVE_REQUESTS,
+                        prompt_len=SERVE_PROMPT, gen=SERVE_GEN, seed=SEED,
+                        log=lambda m: log(f"main serve: {m}"))
+        torch.cuda.synchronize()
+        counts = dict(launches)
+    finally:
+        fe.fabric_egress = fabric_check.kernel
     log(f"main serve path launches: {counts}")
+    if fabric_check.calls != counts["fabric_egress"]:
+        raise AssertionError(f"{fabric_check.calls} checked fabric calls, "
+                             f"{counts['fabric_egress']} launches")
+    log(f"main serve: {fabric_check.calls} fabric launches held against "
+        f"the plain version on their own inputs: 0 mismatching words and "
+        f"fault codes over {fabric_check.words} words")
     for name in ("flash_attention", "fabric_egress"):
         if counts[name] == 0:
             raise AssertionError(f"{name} never launched on the serving "
@@ -975,6 +1044,7 @@ def main() -> int:
                 or "entry function" in line:
             log(f"  ptxas {line.strip()}")
     check_flash_build(_build.build_log())
+    check_search_build(_build.build_log())
 
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("f32 matmuls must not run in TF32")

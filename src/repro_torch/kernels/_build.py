@@ -31,12 +31,12 @@ _P, _I32, _I64, _U32, _F32 = (ctypes.c_void_p, ctypes.c_int32,
 # C entry points: (name, argtypes); each returns cudaGetLastError()
 SIGNATURES = {
     "memcrypt_launch": [_P, _P, _I64, _U32, _U32, _U32, _P],
-    "permcheck_launch": [_P, _I64, _P, _P, _P, _I32, _P, _P, _P, _I32, _I32,
+    "permcheck_launch": [_P, _I64, _P, _P, _P, _I64, _P, _I32, _I32, _I32,
                          _P, _P, _P],
     "checked_memcrypt_launch": [_P, _P, _I64, _P, _P, _P, _I32, _P, _P, _P,
                                 _I32, _U32, _U32, _U32, _P, _P, _P],
-    "fabric_egress_launch": [_P, _P, _I64, _I64, _I64, _P, _P, _P, _P, _P,
-                             _I64, _P, _P, _I32, _U32, _U32, _P, _P, _P],
+    "fabric_egress_launch": [_P, _P, _I64, _I64, _I64, _P, _P, _P, _P,
+                             _I64, _P, _I32, _I32, _U32, _U32, _P, _P, _P],
     # q, k, v, o, dtype, (b, h, hkv, sq, sk, dh), 12 strides, scale,
     # causal, window, workspace, (splits, chunk, k_begin, k_end), stream
     "flash_attention_launch": [_P, _P, _P, _P, _I32] + [_I64] * 18

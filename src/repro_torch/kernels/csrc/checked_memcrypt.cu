@@ -3,12 +3,13 @@
 //
 // Replaces src/repro/kernels/memcrypt.py:checked_memcrypt_view_pallas
 // (_checked_memcrypt_kernel, with _cover_search / _cover_tile from
-// permcheck.py).  Bound on the H100: integer operations — the lookup's
-// three per (word, evaluated entry) plus ~52 per word for the keystream,
-// against 16 bytes per word and 12 per entry.  Design: the permcheck
-// kernel's shared-memory slab walk without the index bookkeeping (the egress
-// needs only "granted" and "covered"), then the keystream computed only on
-// granted lanes; each word is read once and written once.
+// permcheck.py).  Bound on the H100: bytes — 16 per word and 12 per live
+// entry, against ~52 integer operations per granted word for the keystream
+// and ~3 per probe of a search of the sorted shard.  Design: the block-wide
+// slab scan (`egress::block_lookup`, ~3 operations per word and evaluated
+// entry, so far above that bound) for "granted" and "covered", then the
+// keystream computed only on granted lanes; each word is read once and
+// written once.
 #include "egress.cuh"
 
 namespace {
@@ -29,7 +30,7 @@ checked_memcrypt_kernel(const int32_t* __restrict__ data,
                     threadIdx.x;
   const bool active = i < b;
   const int32_t e = active ? ext[i] : -1;
-  const egress::Verdict v = egress::block_lookup<false>(
+  const egress::Verdict v = egress::block_lookup(
       e & egress::PAGE_MASK, active, starts, sizes, sizes_ok, n_tiles,
       tile_min, tile_max, *sel != 0);
   if (active)

@@ -1,8 +1,9 @@
 // Device functions shared by the four egress kernels (memcrypt, permcheck,
 // checked_memcrypt, fabric_egress).  Keeping the keystream and the lookup in
 // one header makes the kernels bit-identical to each other by construction:
-// kernels 1, 3 and 4 run the same 12-round ARX keystream, kernels 2, 3 and 4
-// the same diff-form range test.
+// kernels 1, 3 and 4 run the same 12-round ARX keystream; kernels 2 and 4
+// the same per-lane sorted search (`shard_prologue` + `lane_search`), kernel
+// 3 the block-wide slab scan (`block_lookup`).
 //
 // u32 words cross the C interface as int32 (torch has no uint32 arithmetic
 // on the CPU); every kernel reinterprets them as uint32_t and hands the same
@@ -14,11 +15,14 @@
 
 namespace egress {
 
-constexpr int THREADS = 256;        // threads per block = lanes per block
-constexpr int ENTRY_TILE = 1024;    // table entries per shared-memory slab
+constexpr int THREADS = 256;        // threads per block, kernels 1 and 3
+constexpr int ENTRY_TILE = 1024;    // table entries per tile (and per slab)
 constexpr int MAX_TILES = 64;       // MAX_ENTRIES / ENTRY_TILE: one u64 mask
 constexpr int HWPID_SHIFT = 24;
 constexpr int32_t PAGE_MASK = (1 << HWPID_SHIFT) - 1;
+constexpr int32_t EMPTY_START = 0x7FFFFFFF;  // start of a dead entry / tile
+constexpr int VEC = 4;              // addresses per thread, search kernels
+constexpr int SEARCH_THREADS = 128; // threads per block, search kernels
 
 // repro_torch.core.checker fault codes
 constexpr int32_t FAULT_NONE = 0;
@@ -55,8 +59,138 @@ __device__ __forceinline__ uint32_t keystream_x0(uint32_t k0, uint32_t k1,
 struct Verdict {
   bool any_ok;    // some entry covering the page grants `need`
   bool covered;   // some entry covers the page
-  int32_t idx;    // first covering entry (WANT_IDX only), else -1
+  int32_t idx;    // the covering entry (the search only), else -1
 };
+
+// ---------------------------------------------------------------------------
+// The per-lane sorted search (kernels 2 and 4).
+//
+// PRECONDITION on every shard it searches — what HostTable commits and every
+// view of it (make_shard_view, HostRuntime.shard_view, stack_views) keeps:
+//   * the live entries are a prefix, strictly sorted by start and
+//     non-overlapping (ends[k] <= starts[k + 1]);
+//   * every entry past them is an EMPTY_START (INT32_MAX) sentinel, so a
+//     page (< 2^24) never reaches it;
+//   * the shard holds n_tiles * ENTRY_TILE entries (n_tiles <= MAX_TILES),
+//     and tile_min[t] = starts[t * ENTRY_TILE] (EMPTY_START for a dead
+//     tile), as core/table.tile_summary builds it.
+// Then at most one entry covers a page: the last entry whose start <= page.
+// Two levels find it: the last live tile t with tile_min[t] <= page, from
+// shared memory; then the last entry of tile t with start <= page.  Both are
+// fixed-trip binary searches over power-of-two steps, so every lane of a
+// block runs the same number of probes and no lane diverges.
+// ---------------------------------------------------------------------------
+
+// Block-uniform facts about one shard, set up by `shard_prologue`.
+struct Shard {
+  const int32_t* tmin;    // shared: tile_min, EMPTY_START past the live tiles
+  const int32_t* starts;  // device: the shard's starts
+  const int32_t* tile;    // shared: tile 0's live starts, when `staged`
+  int live_tiles;         // tiles holding a live entry (a prefix)
+  int tile_live;          // live entries staged in `tile`
+  int tile_step;          // first level-1 step: largest power of 2 < live_tiles
+  int entry_step;         // first level-2 step
+  bool staged;            // one live tile, staged in shared memory
+};
+
+// Largest power of two strictly below n; 0 for n <= 1.
+__device__ __forceinline__ int step_below(int n) {
+  return n <= 1 ? 0 : 1 << (31 - __clz(n - 1));
+}
+
+// Every thread of the block must call this (it synchronises), with the
+// shard's device arrays; blockDim.x must be at least MAX_TILES and divide
+// ENTRY_TILE.  `s_tmin` holds MAX_TILES ints of shared memory, `s_tile`
+// ENTRY_TILE.  A shard whose live entries fit in its first tile (a host's
+// resident shard at the 255-host deployment) is staged in shared memory,
+// blockDim.x entries at a time up to the first sentinel, and its level-2
+// search spans only its live entries.
+__device__ __forceinline__ Shard shard_prologue(
+    const int32_t* __restrict__ starts, const int32_t* __restrict__ tile_min,
+    int n_tiles, int32_t* s_tmin, int32_t* s_tile) {
+  const int tid = threadIdx.x;
+  const int32_t tm = tid < n_tiles ? tile_min[tid] : EMPTY_START;
+  if (tid < MAX_TILES) s_tmin[tid] = tm;
+  Shard sh;
+  sh.tmin = s_tmin;
+  sh.starts = starts;
+  sh.tile = s_tile;
+  sh.live_tiles = __syncthreads_count(tm != EMPTY_START);
+  sh.tile_live = 0;
+  sh.tile_step = step_below(sh.live_tiles);
+  sh.entry_step = ENTRY_TILE / 2;
+  sh.staged = sh.live_tiles == 1;
+  if (sh.staged) {
+    for (int base = 0; base < ENTRY_TILE; base += blockDim.x) {
+      const int32_t v = starts[base + tid];
+      s_tile[base + tid] = v;
+      const int live = __syncthreads_count(v != EMPTY_START);
+      sh.tile_live += live;
+      if (live < static_cast<int>(blockDim.x)) break;   // the sentinel tail
+    }
+    sh.entry_step = step_below(sh.tile_live);
+  }
+  return sh;
+}
+
+// One lane's V pages -> for each, the only entry that can cover it: the
+// last entry whose start <= page, or -1.  No barriers.  The V searches run
+// step for step together, so their loads are independent and overlap.
+// Level-1 probes stay below MAX_TILES and level-2 probes inside the tile
+// (the steps sum to 2 * first step - 1 < the searched length); the
+// EMPTY_START tiles and entries past the live ones are never <= a page.
+// Only the staged tile needs a bound check: it holds nothing past the chunk
+// that reached the first sentinel.
+template <int V>
+__device__ __forceinline__ void lane_search(const int32_t (&page)[V],
+                                            const Shard& sh, int (&k)[V]) {
+  int t[V], e[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) t[j] = e[j] = 0;
+  for (int s = sh.tile_step; s > 0; s >>= 1) {
+#pragma unroll
+    for (int j = 0; j < V; ++j)
+      if (sh.tmin[t[j] + s] <= page[j]) t[j] += s;
+  }
+  if (sh.staged) {
+    for (int s = sh.entry_step; s > 0; s >>= 1) {
+#pragma unroll
+      for (int j = 0; j < V; ++j)
+        if (e[j] + s < sh.tile_live && sh.tile[e[j] + s] <= page[j])
+          e[j] += s;
+    }
+  } else {
+    const int32_t* base[V];
+#pragma unroll
+    for (int j = 0; j < V; ++j) base[j] = sh.starts + t[j] * ENTRY_TILE;
+    for (int s = sh.entry_step; s > 0; s >>= 1) {
+#pragma unroll
+      for (int j = 0; j < V; ++j)
+        if (__ldg(base[j] + e[j] + s) <= page[j]) e[j] += s;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < V; ++j)
+    k[j] = sh.tmin[t[j]] <= page[j] ? t[j] * ENTRY_TILE + e[j] : -1;
+}
+
+// The verdict for `page` from its search result: the caller's one read of
+// the found entry's end and permission bits.
+__device__ __forceinline__ Verdict entry_verdict(
+    int32_t page, int k, const int32_t* __restrict__ ends,
+    const int32_t* __restrict__ permbits, int32_t need) {
+  Verdict v{false, false, -1};
+  if (k >= 0 && page < __ldg(ends + k)) {
+    v.covered = true;
+    v.idx = k;
+    v.any_ok = (__ldg(permbits + k) & need) == need;
+  }
+  return v;
+}
+
+// ---------------------------------------------------------------------------
+// The block-wide slab scan (kernel 3).
+// ---------------------------------------------------------------------------
 
 // One page per thread, looked up against one table shard.  The shard streams
 // through shared memory ENTRY_TILE entries at a time (12 KB of starts, sizes,
@@ -70,13 +204,12 @@ struct Verdict {
 //
 // `hier` (uniform across the block) first ORs the candidate tiles of every
 // lane's page from the [tile_min, tile_max) summary into one u64 mask and
-// then walks only the set tiles, in ascending order, so `idx` stays the FIRST
-// covering entry; flat walks every tile.  Any entry that covers a page lies
-// in a tile whose window holds the page, so both walks give the same answer.
+// then walks only the set tiles; flat walks every tile.  Any entry that
+// covers a page lies in a tile whose window holds the page, so both walks
+// give the same answer.
 //
 // Every thread of the block must call this (it synchronises); `active` marks
 // the lanes that hold a page.
-template <bool WANT_IDX>
 __device__ __forceinline__ Verdict block_lookup(
     int32_t page, bool active, const int32_t* __restrict__ starts,
     const int32_t* __restrict__ sizes, const int32_t* __restrict__ sizes_ok,
@@ -121,15 +254,10 @@ __device__ __forceinline__ Verdict block_lookup(
       for (int k = 0; k < ENTRY_TILE; ++k) {
         const uint32_t diff = upage - static_cast<uint32_t>(s_start[k]);
         v.any_ok |= diff < s_ok[k];
-        if (WANT_IDX) {
-          if (v.idx < 0 && diff < s_size[k]) v.idx = t * ENTRY_TILE + k;
-        } else {
-          v.covered |= diff < s_size[k];
-        }
+        v.covered |= diff < s_size[k];
       }
     }
   }
-  if (WANT_IDX) v.covered = v.idx >= 0;
   return v;
 }
 
@@ -151,9 +279,9 @@ __device__ __forceinline__ void egress_word(int32_t word, int32_t ext,
         : !tag_ok ? FAULT_NOT_LOCAL
         : !v.covered ? FAULT_NO_ENTRY
         : FAULT_PERM;
-  *out = allowed ? static_cast<int32_t>(static_cast<uint32_t>(word) ^
-                                        keystream_x0(k0, k1, pos))
-                 : 0;
+  uint32_t w = 0;
+  if (allowed) w = static_cast<uint32_t>(word) ^ keystream_x0(k0, k1, pos);
+  *out = static_cast<int32_t>(w);
   *fault = f;
 }
 

@@ -2,72 +2,121 @@
 // (host, tenant) row of a fabric step in one launch.
 //
 // Replaces src/repro/kernels/fabric_egress.py:fabric_egress_pallas
-// (_fabric_egress_impl, _fabric_egress_kernel).  Bound on the H100: at the
-// 255-host deployment each row's shard is one 1024-entry slab, so the flat
-// walk spends ~3000 integer operations per word (three per slab entry)
-// against 16 bytes per word: operations bound, although the function needs
-// only the slab's few live entries.  Design: a 2-D grid (address block,
-// row); each row's tenant HWPID and flat/hier choice are read from device
-// arrays, so admitting a tenant or a row changing mode never rebuilds or
-// re-launches anything, and flat and hier rows share one launch.  Rows are
-// not padded: the keystream position is still counted as
-// row * bucket_pad(B, 1024) + lane, as the reference pads each row.
+// (_fabric_egress_impl, _fabric_egress_kernel).  Bound on the H100: bytes —
+// 16 per word (data and address in, word and fault out) against ~52
+// integer operations per granted word for the keystream and ~3 per search
+// probe.  Design: a 2-D grid (word block, row); each block finds its row's
+// shard by blockIdx.y and each lane binary-searches it
+// (`egress::lane_search`), so a word costs O(log N) probes, not a scan of
+// the row's slab.  At the 255-host deployment a row's live entries fit in
+// one 1024-entry tile: the block stages that tile (4 KB) in shared memory
+// once and searches only its live entries.  Each thread takes VEC
+// consecutive words with 16-byte loads of data and address and 16-byte
+// stores of word and fault, and runs the keystream on granted words only.
+// The tenant HWPID is a per-row device operand, so admitting a tenant never
+// rebuilds or re-launches anything.  Rows are not padded: the keystream
+// position is still counted as row * bucket_pad(B, 1024) + lane, as the
+// reference pads each row.
 #include "egress.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(egress::THREADS)
+template <bool WIDE>
+__global__ void __launch_bounds__(egress::SEARCH_THREADS)
 fabric_egress_kernel(const int32_t* __restrict__ data,
                      const int32_t* __restrict__ ext, int64_t b, int64_t bp,
                      const int32_t* __restrict__ hwpids,
-                     const int32_t* __restrict__ use_hier,
                      const int32_t* __restrict__ starts,
-                     const int32_t* __restrict__ sizes,
-                     const int32_t* __restrict__ sizes_ok, int64_t n_entries,
-                     const int32_t* __restrict__ tile_min,
-                     const int32_t* __restrict__ tile_max, int n_tiles,
-                     uint32_t k0, uint32_t k1, int32_t* __restrict__ out,
-                     int32_t* __restrict__ fault) {
+                     const int32_t* __restrict__ ends,
+                     const int32_t* __restrict__ permbits, int64_t n_entries,
+                     const int32_t* __restrict__ tile_min, int n_tiles,
+                     int32_t need, uint32_t k0, uint32_t k1,
+                     int32_t* __restrict__ out, int32_t* __restrict__ fault) {
+  constexpr int V = egress::VEC;
+  static_assert(V == 4, "one 16-byte load or store carries V words");
+  __shared__ int32_t s_tmin[egress::MAX_TILES];
+  __shared__ int32_t s_tile[egress::ENTRY_TILE];
   const int64_t row = blockIdx.y;
-  const int64_t lane = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                       threadIdx.x;
-  const bool active = lane < b;
-  const int64_t i = row * b + lane;
-  const int32_t e = active ? ext[i] : -1;
+  // the words first: their loads overlap the shard prologue's
+  const int64_t lane0 =
+      (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) * V;
+  const int64_t i0 = row * b + lane0;
+  int32_t w[V] = {0, 0, 0, 0}, e[V] = {-1, -1, -1, -1}, page[V];
+  if (WIDE && lane0 < b) {    // b % V == 0 and every operand 16-byte aligned
+    const int4 qd = *reinterpret_cast<const int4*>(data + i0);
+    const int4 qe = *reinterpret_cast<const int4*>(ext + i0);
+    w[0] = qd.x; w[1] = qd.y; w[2] = qd.z; w[3] = qd.w;
+    e[0] = qe.x; e[1] = qe.y; e[2] = qe.z; e[3] = qe.w;
+  } else if (!WIDE) {
+#pragma unroll
+    for (int j = 0; j < V; ++j)
+      if (lane0 + j < b) {
+        w[j] = data[i0 + j];
+        e[j] = ext[i0 + j];
+      }
+  }
+  const int32_t hwpid = hwpids[row];
   const int64_t eo = row * n_entries;
-  const int64_t to = row * static_cast<int64_t>(n_tiles);
-  const egress::Verdict v = egress::block_lookup<false>(
-      e & egress::PAGE_MASK, active, starts + eo, sizes + eo, sizes_ok + eo,
-      n_tiles, tile_min + to, tile_max + to, use_hier[row] != 0);
-  if (active)
-    egress::egress_word(data[i], e, hwpids[row], v, k0, k1,
-                        static_cast<uint32_t>(row * bp + lane), out + i,
-                        fault + i);
+  const egress::Shard sh = egress::shard_prologue(
+      starts + eo, tile_min + row * n_tiles, n_tiles, s_tmin, s_tile);
+  if (lane0 >= b) return;
+#pragma unroll
+  for (int j = 0; j < V; ++j) page[j] = e[j] & egress::PAGE_MASK;
+  int k[V];
+  egress::lane_search<V>(page, sh, k);
+  int32_t o[V], f[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    const egress::Verdict v = egress::entry_verdict(
+        page[j], k[j], ends + eo, permbits + eo, need);
+    egress::egress_word(w[j], e[j], hwpid, v, k0, k1,
+                        static_cast<uint32_t>(row * bp + lane0 + j), &o[j],
+                        &f[j]);
+  }
+  if (WIDE) {
+    *reinterpret_cast<int4*>(out + i0) = make_int4(o[0], o[1], o[2], o[3]);
+    *reinterpret_cast<int4*>(fault + i0) = make_int4(f[0], f[1], f[2], f[3]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < V; ++j)
+      if (lane0 + j < b) {
+        out[i0 + j] = o[j];
+        fault[i0 + j] = f[j];
+      }
+  }
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 }  // namespace
 
 extern "C" int fabric_egress_launch(
     const void* data, const void* ext, int64_t rows, int64_t b, int64_t bp,
-    const void* hwpids, const void* use_hier, const void* starts,
-    const void* sizes, const void* sizes_ok, int64_t n_entries,
-    const void* tile_min, const void* tile_max, int32_t n_tiles, uint32_t k0,
-    uint32_t k1, void* out, void* fault, void* stream) {
+    const void* hwpids, const void* starts, const void* ends,
+    const void* permbits, int64_t n_entries, const void* tile_min,
+    int32_t n_tiles, int32_t need, uint32_t k0, uint32_t k1, void* out,
+    void* fault, void* stream) {
   if (rows <= 0 || b <= 0) return 0;
-  if (n_tiles < 1 || n_tiles > egress::MAX_TILES || rows > 65535)
+  if (n_tiles < 1 || n_tiles > egress::MAX_TILES || rows > 65535 ||
+      n_entries != static_cast<int64_t>(n_tiles) * egress::ENTRY_TILE)
     return cudaErrorInvalidValue;
-  const dim3 grid(static_cast<unsigned>((b + egress::THREADS - 1) /
-                                        egress::THREADS),
+  const int64_t per_block =
+      static_cast<int64_t>(egress::SEARCH_THREADS) * egress::VEC;
+  const dim3 grid(static_cast<unsigned>((b + per_block - 1) / per_block),
                   static_cast<unsigned>(rows));
-  fabric_egress_kernel<<<grid, egress::THREADS, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
+  const bool wide = b % egress::VEC == 0 && aligned16(data) &&
+                    aligned16(ext) && aligned16(out) && aligned16(fault);
+  auto kernel = wide ? fabric_egress_kernel<true>
+                     : fabric_egress_kernel<false>;
+  kernel<<<grid, egress::SEARCH_THREADS, 0,
+                 static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(data), static_cast<const int32_t*>(ext), b,
       bp, static_cast<const int32_t*>(hwpids),
-      static_cast<const int32_t*>(use_hier),
-      static_cast<const int32_t*>(starts), static_cast<const int32_t*>(sizes),
-      static_cast<const int32_t*>(sizes_ok), n_entries,
-      static_cast<const int32_t*>(tile_min),
-      static_cast<const int32_t*>(tile_max), n_tiles, k0, k1,
+      static_cast<const int32_t*>(starts), static_cast<const int32_t*>(ends),
+      static_cast<const int32_t*>(permbits), n_entries,
+      static_cast<const int32_t*>(tile_min), n_tiles, need, k0, k1,
       static_cast<int32_t*>(out), static_cast<int32_t*>(fault));
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,64 +1,110 @@
 // Kernel 2: the permission check — per tagged address, `allowed` (tag match
-// and some covering entry grants `need`) and `idx` (first covering entry,
-// else -1), in flat, hier or adaptive mode.
+// and the covering entry grants `need`) and `idx` (the covering entry, else
+// -1).  The reference's flat, hier and adaptive modes change only its cost;
+// all three run this one search.
 //
 // Replaces src/repro/kernels/permcheck.py:permcheck_view_pallas
 // (_permcheck_flat_kernel, _permcheck_hier_kernel,
-// _permcheck_adaptive_kernel).  Bound on the H100: integer operations —
-// about four per (address, evaluated entry), against 9 bytes per address and
-// 12 per entry.  The TPU kernel keeps the whole shard (up to 768 KiB)
-// resident in VMEM; that does not fit in 227 KB of shared memory, so here
-// each block of 256 addresses streams the shard through shared memory in
-// 1024-entry slabs read once per block and broadcast to all lanes, and hier
-// mode skips every slab no lane of the block needs.  Adaptive mode reads the
-// selector from device memory, so choosing a mode never syncs the host.
+// _permcheck_adaptive_kernel).  Bound on the H100: bytes — 9 per address
+// and 12 per live entry, against ~3 integer operations per probe and
+// ceil(log2 live tiles) + ceil(log2 live entries of the tile) + 1 probes per
+// address.  The TPU kernel compares every address with every entry of the
+// tiles it walks, keeping the shard (up to 768 KiB) resident in VMEM; here
+// each lane binary-searches the sorted shard (`egress::lane_search`): the
+// tile summary from shared memory, then the tile's starts through the
+// read-only cache, whose top levels every lane shares.  Each thread takes
+// VEC consecutive addresses with 16-byte loads and stores, so its VEC
+// searches overlap their loads.
 #include "egress.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(egress::THREADS)
+template <bool WIDE>
+__global__ void __launch_bounds__(egress::SEARCH_THREADS)
 permcheck_kernel(const int32_t* __restrict__ ext, int64_t b,
                  const int32_t* __restrict__ starts,
-                 const int32_t* __restrict__ sizes,
-                 const int32_t* __restrict__ sizes_ok, int n_tiles,
-                 const int32_t* __restrict__ tile_min,
-                 const int32_t* __restrict__ tile_max,
-                 const int32_t* __restrict__ sel, int mode, int32_t hwpid,
-                 bool* __restrict__ allowed, int32_t* __restrict__ idx) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                    threadIdx.x;
-  const bool active = i < b;
-  const int32_t e = active ? ext[i] : -1;
-  // mode 0 flat, 1 hier, 2 adaptive (selector operand, uniform per launch)
-  const bool hier = mode == 1 || (mode == 2 && *sel != 0);
-  const egress::Verdict v = egress::block_lookup<true>(
-      e & egress::PAGE_MASK, active, starts, sizes, sizes_ok, n_tiles,
-      tile_min, tile_max, hier);
-  if (active) {
-    allowed[i] = ((e >> egress::HWPID_SHIFT) == hwpid) && v.any_ok;
-    idx[i] = v.idx;
+                 const int32_t* __restrict__ ends,
+                 const int32_t* __restrict__ permbits,
+                 const int32_t* __restrict__ tile_min, int n_tiles,
+                 int32_t need, int32_t hwpid, bool* __restrict__ allowed,
+                 int32_t* __restrict__ idx) {
+  constexpr int V = egress::VEC;
+  static_assert(V == 4, "one 16-byte load or store carries V words");
+  __shared__ int32_t s_tmin[egress::MAX_TILES];
+  __shared__ int32_t s_tile[egress::ENTRY_TILE];
+  // the addresses first: their loads overlap the shard prologue's
+  const int64_t i0 =
+      (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) * V;
+  int32_t e[V] = {-1, -1, -1, -1}, page[V];
+  if (WIDE && i0 < b) {    // b % V == 0 and every operand 16-byte aligned
+    const int4 q = *reinterpret_cast<const int4*>(ext + i0);
+    e[0] = q.x; e[1] = q.y; e[2] = q.z; e[3] = q.w;
+  } else if (!WIDE) {
+#pragma unroll
+    for (int j = 0; j < V; ++j)
+      if (i0 + j < b) e[j] = ext[i0 + j];
   }
+  const egress::Shard sh =
+      egress::shard_prologue(starts, tile_min, n_tiles, s_tmin, s_tile);
+  if (i0 >= b) return;
+#pragma unroll
+  for (int j = 0; j < V; ++j) page[j] = e[j] & egress::PAGE_MASK;
+  int k[V];
+  egress::lane_search<V>(page, sh, k);
+  bool ok[V];
+  int32_t id[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    const egress::Verdict v =
+        egress::entry_verdict(page[j], k[j], ends, permbits, need);
+    ok[j] = (e[j] >> egress::HWPID_SHIFT) == hwpid && v.any_ok;
+    id[j] = v.idx;
+  }
+  if (WIDE) {
+    *reinterpret_cast<int4*>(idx + i0) = make_int4(id[0], id[1], id[2],
+                                                   id[3]);
+    *reinterpret_cast<uchar4*>(allowed + i0) = make_uchar4(ok[0], ok[1],
+                                                           ok[2], ok[3]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < V; ++j)
+      if (i0 + j < b) {
+        idx[i0 + j] = id[j];
+        allowed[i0 + j] = ok[j];
+      }
+  }
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 }  // namespace
 
 extern "C" int permcheck_launch(const void* ext, int64_t b,
-                                const void* starts, const void* sizes,
-                                const void* sizes_ok, int32_t n_tiles,
-                                const void* tile_min, const void* tile_max,
-                                const void* sel, int32_t mode, int32_t hwpid,
-                                void* allowed, void* idx, void* stream) {
+                                const void* starts, const void* ends,
+                                const void* permbits, int64_t n_entries,
+                                const void* tile_min, int32_t n_tiles,
+                                int32_t need, int32_t hwpid, void* allowed,
+                                void* idx, void* stream) {
   if (b <= 0) return 0;
-  if (n_tiles < 1 || n_tiles > egress::MAX_TILES) return cudaErrorInvalidValue;
-  const int64_t blocks = (b + egress::THREADS - 1) / egress::THREADS;
-  permcheck_kernel<<<static_cast<unsigned>(blocks), egress::THREADS, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
+  if (n_tiles < 1 || n_tiles > egress::MAX_TILES ||
+      n_entries != static_cast<int64_t>(n_tiles) * egress::ENTRY_TILE)
+    return cudaErrorInvalidValue;
+  const int64_t per_block =
+      static_cast<int64_t>(egress::SEARCH_THREADS) * egress::VEC;
+  const unsigned blocks = static_cast<unsigned>((b + per_block - 1) /
+                                                per_block);
+  const bool wide = b % egress::VEC == 0 && aligned16(ext) &&
+                    aligned16(idx) && reinterpret_cast<uintptr_t>(allowed) %
+                    egress::VEC == 0;
+  auto kernel = wide ? permcheck_kernel<true> : permcheck_kernel<false>;
+  kernel<<<blocks, egress::SEARCH_THREADS, 0,
+           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(ext), b,
-      static_cast<const int32_t*>(starts), static_cast<const int32_t*>(sizes),
-      static_cast<const int32_t*>(sizes_ok), n_tiles,
-      static_cast<const int32_t*>(tile_min),
-      static_cast<const int32_t*>(tile_max),
-      static_cast<const int32_t*>(sel), mode, hwpid,
+      static_cast<const int32_t*>(starts), static_cast<const int32_t*>(ends),
+      static_cast<const int32_t*>(permbits),
+      static_cast<const int32_t*>(tile_min), n_tiles, need, hwpid,
       static_cast<bool*>(allowed), static_cast<int32_t*>(idx));
   return static_cast<int>(cudaGetLastError());
 }

@@ -4,7 +4,7 @@ launch.
 The single-host fused kernel launches once per host per step — at the
 paper's 255-host deployment that is 255 launches of identical structure.
 ``fabric_egress`` runs the whole fabric step in ONE launch of
-``csrc/fabric_egress.cu`` over a 2-D grid (address block, row), where a
+``csrc/fabric_egress.cu`` over a 2-D grid (word block, row), where a
 **row is one (host, tenant) pair** (`repro_torch.core.fabric.ShardedFabric
 .fabric_rows` defines the order):
 
@@ -12,12 +12,16 @@ paper's 255-host deployment that is 255 launches of identical structure.
     entry arrays of a `FabricView`, with that tenant's permbits;
   * the tenant HWPID is a per-row device operand, so admitting a tenant
     with a fresh HWPID changes data, not code;
-  * flat-vs-hier is chosen per row (`_per_host_use_hier`) and shipped as a
-    ``use_hier i32[R]`` device operand — a host serving uniform traffic
-    runs the flat scan while its neighbour with a hot working set keeps
-    the two-level walk, in the same launch;
+  * each word's lane binary-searches its row's sorted shard (the
+    precondition `permcheck.lane_search_plain` states) and tests the one
+    entry found against the page and ``need``: no per-row mode, no
+    per-call operands derived on the host side;
   * the keystream position is ``row * bucket_pad(B, BLOCK) + lane`` —
     exactly the single-host kernel at ``base_word = row * padded_B``.
+
+`_per_host_use_hier` keeps the reference's per-row flat/hier selector as
+parity API: the tests hold it against the JAX package, and ``chip_smoke.py``
+uses it to mix both kinds of traffic in one launch.
 
 Per-row semantics match ``ref.checked_memcrypt`` for that row's shard and
 hwpid bit for bit: denied lanes read zero and carry a FAULT_* code.
@@ -26,12 +30,12 @@ from __future__ import annotations
 
 import torch
 
-from ..core.table import PAGE_MASK, as_int32
+from ..core.table import as_int32
 from . import bucket_pad, check_cuda_operands, launches, ref
 from ._build import launch
-from .memcrypt import BLOCK, SUPER_BLOCKS
-from .permcheck import (HIER_DENSITY_DEN, HIER_DENSITY_NUM, grant_sizes,
-                        pad_batch)
+from .memcrypt import BLOCK
+from .permcheck import (HIER_DENSITY_DEN, HIER_DENSITY_NUM,
+                        check_search_layout)
 
 _U32 = 0xFFFFFFFF
 
@@ -96,23 +100,20 @@ def fabric_egress(data, ext_addrs, view, *, need: int, key0: int, key1: int):
                                    key1=key1)
     data, ext = data.contiguous(), ext.contiguous()
     rows, b = data.shape
-    bp = bucket_pad(b, BLOCK)
-    sb = min(SUPER_BLOCKS, bp // BLOCK) * BLOCK   # both are powers of two
-    use_hier = _per_host_use_hier(pad_batch(ext, BLOCK) & PAGE_MASK,
-                                  view.tile_min, view.tile_max, block=sb)
-    sizes, sizes_ok = grant_sizes(view.starts, view.ends, view.permbits,
-                                  need)
     check_cuda_operands(data=data, ext=ext, hwpids=view.hwpids,
-                        use_hier=use_hier, starts=view.starts, sizes=sizes,
-                        sizes_ok=sizes_ok, tile_min=view.tile_min,
-                        tile_max=view.tile_max)
+                        starts=view.starts, ends=view.ends,
+                        permbits=view.permbits, tile_min=view.tile_min)
+    check_search_layout(view.starts, view.ends, view.permbits, view.tile_min)
+    if tuple(view.hwpids.shape) != (rows,):
+        raise ValueError(f"hwpids {tuple(view.hwpids.shape)} for {rows} "
+                         "rows")
     out = torch.empty_like(data)
     fault = torch.empty_like(data)
     launch("fabric_egress_launch", data.data_ptr(), ext.data_ptr(), rows, b,
-           bp, view.hwpids.data_ptr(), use_hier.data_ptr(),
-           view.starts.data_ptr(), sizes.data_ptr(), sizes_ok.data_ptr(),
-           view.starts.shape[1], view.tile_min.data_ptr(),
-           view.tile_max.data_ptr(), view.tile_min.shape[1],
+           bucket_pad(b, BLOCK), view.hwpids.data_ptr(),
+           view.starts.data_ptr(), view.ends.data_ptr(),
+           view.permbits.data_ptr(), view.starts.shape[1],
+           view.tile_min.data_ptr(), view.tile_min.shape[1], int(need),
            int(key0) & _U32, int(key1) & _U32, out.data_ptr(),
            fault.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     launches["fabric_egress"] += 1

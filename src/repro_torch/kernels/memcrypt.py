@@ -11,10 +11,11 @@ Two kernels:
   ``memcrypt``              — plain keystream XOR over a u32 buffer
     (``csrc/memcrypt.cu``).
   ``checked_memcrypt_view`` — the fused egress path: tag check + adaptive
-    cover lookup (the same flat/hier selector as ``permcheck_view``) +
-    keystream XOR in one launch (``csrc/checked_memcrypt.cu``).  It reads
-    each word once, zeroes denied lanes and emits a fault code per word —
-    the checker and the encryption engine back to back at the egress point.
+    cover lookup (the reference's flat/hier selector,
+    ``permcheck.hier_profitable``) + keystream XOR in one launch
+    (``csrc/checked_memcrypt.cu``).  It reads each word once, zeroes
+    denied lanes and emits a fault code per word — the checker and the
+    encryption engine back to back at the egress point.
 
 u32 words travel as int32 tensors with the same bit patterns.
 """
@@ -73,8 +74,9 @@ def checked_memcrypt_view(data, ext_addrs, view: ShardView, *, hwpid: int,
     ``base_word + i`` and released only if the lookup grants ``need`` to
     ``hwpid``.  Returns ``(out i32[B], fault i32[B])`` with ``out`` zeroed
     and a ``repro_torch.core.checker.FAULT_*`` code on every denied lane.
-    The flat/hier search is picked per call by the same selector as
-    ``permcheck_view``, scored in SUPER_BLOCKS x BLOCK-word steps.
+    The flat/hier walk is picked per call by the reference's selector
+    (``permcheck.hier_profitable``), scored in SUPER_BLOCKS x BLOCK-word
+    steps.
     """
     dev = view.starts.device
     d = as_int32(data, dev).reshape(-1).contiguous()

@@ -1,30 +1,27 @@
 """The Space-Control permission check (paper §4.2.3) as a CUDA kernel.
 
 Per tagged address the kernel answers ``allowed`` (the tag is the tenant's
-and some entry covering the page grants ``need``) and ``idx`` (the first
-entry covering the page, else -1) against one tenant's table shard.  The
-kernel itself is ``csrc/permcheck.cu``; this module holds its wrapper, the
-shard views it runs on, and the adaptive selector.
+and the entry covering the page grants ``need``) and ``idx`` (the entry
+covering the page, else -1) against one tenant's table shard.  The kernel
+itself is ``csrc/permcheck.cu``; this module holds its wrapper, the shard
+views it runs on, and the reference's adaptive selector.
 
-Three modes share the wrapper:
+The kernel is a per-lane search over the sorted shard: the last live tile
+whose first start is at or below the page (from the tile summary), then the
+last entry of that tile whose start is (`lane_search_plain` repeats it probe
+for probe).  It relies on what every view here holds: live entries sorted
+by start, non-overlapping, followed by never-matching INT32_MAX sentinels.
 
-  mode="adaptive" (default) — `hier_profitable` scores the batch's
-    candidate-tile density from the tile summary the view already holds and
-    hands the verdict to the kernel as a device operand: dense batches
-    (uniform traces) run the flat scan, sparse ones (hot traces) the
-    two-level walk.  The host never reads the verdict back.
-  mode="hier" — two-level search: each block of addresses ORs its lanes'
-    candidate tiles from the per-tile [min start, max end) summary and walks
-    only those 1024-entry tiles.
-  mode="flat" — every tile, in order.
-
-The mode changes the cost, never the output.  The selector scores the batch
-in ADDR_BLOCK-lane steps, padded as the JAX package pads it, so both
-packages choose the same mode on the same batch.
+The reference's three modes — "flat" (scan every tile), "hier" (scan the
+tiles the summary flags) and "adaptive" (`hier_profitable` picks one per
+batch) — change only its cost, never the output.  The wrapper still checks
+``mode``, but on CUDA every mode runs the one search.  `hier_profitable`,
+`selected_mode` and `grant_sizes` stay as the reference's API, held against
+it by the parity tests; the fused kernel (``memcrypt.checked_memcrypt_view``)
+still runs on them.
 
 Layout: addresses i32[B]; entries i32[N] padded to a power-of-two multiple
-of ENTRY_TILE with never-matching INT32_MAX sentinels (N <= MAX_ENTRIES);
-the kernel receives the diff-form spans of `grant_sizes`.
+of ENTRY_TILE with never-matching INT32_MAX sentinels (N <= MAX_ENTRIES).
 """
 from __future__ import annotations
 
@@ -40,15 +37,16 @@ from . import bucket_pad, check_cuda_operands, launches, ref, resolve_device
 from ._build import launch
 
 ADDR_BLOCK = 1024          # addresses per selector step (the reference's)
-ENTRY_TILE = 1024          # table entries per shared-memory slab
-MAX_ENTRIES = 65536        # per-shard ceiling (64 tiles: one u64 tile mask)
+ENTRY_TILE = 1024          # table entries per summary tile
+MAX_ENTRIES = 65536        # per-shard ceiling
+MAX_TILES = MAX_ENTRIES // ENTRY_TILE
 
 # Adaptive selector decision rule: hier only while the mean candidate-tile
 # count per step stays below 3/4 of the shard's tiles.
 HIER_DENSITY_NUM = 3
 HIER_DENSITY_DEN = 4
 
-MODES = {"flat": 0, "hier": 1, "adaptive": 2}
+MODES = ("flat", "hier", "adaptive")      # the reference's; cost only
 
 assert ENTRY_TILE == SUMMARY_TILE, "kernel tile must match table summary tile"
 
@@ -211,38 +209,89 @@ def permcheck_view_plain(ext_addrs, view: ShardView, *, hwpid: int,
                          hwpid=hwpid, need=need)
 
 
+def _search_steps(n: int):
+    """The power-of-two steps of a binary search over ``n`` entries: the
+    largest power of two below ``n``, halved down to 1 (none for n <= 1)."""
+    s = 1 << ((n - 1).bit_length() - 1) if n > 1 else 0
+    while s:
+        yield s
+        s >>= 1
+
+
+def lane_search_plain(pages, starts, tile_min) -> torch.Tensor:
+    """The search kernels' two-level probe sequence, step for step
+    (``egress::shard_prologue`` + ``egress::lane_search``): for each page
+    the last entry whose start is at or below it, else -1.
+
+    Level 1 searches the live tiles' first starts (``tile_min``, INT32_MAX
+    for a dead tile) for the last one <= page; level 2 searches that tile's
+    starts for the last one <= page.  A shard with one live tile searches
+    only that tile's live entries, as the kernel does from shared memory.
+    ``starts`` i32[T * ENTRY_TILE] must meet the kernels' precondition
+    (sorted, non-overlapping, sentinel tail); then the result is the only
+    entry that can cover the page.  Returns i32[B].
+    """
+    pages = as_int32(pages, starts.device).reshape(-1)
+    n_tiles = tile_min.shape[0]
+    smax = int(np.iinfo(np.int32).max)
+    tmin = torch.full((MAX_TILES,), smax, dtype=torch.int32,
+                      device=starts.device)
+    tmin[:n_tiles] = as_int32(tile_min, starts.device)
+    live_tiles = int((tmin != smax).sum())
+    t = torch.zeros_like(pages, dtype=torch.int64)
+    for s in _search_steps(live_tiles):
+        t = torch.where(tmin[t + s] <= pages, t + s, t)
+    n_level2 = ENTRY_TILE
+    if live_tiles == 1:
+        n_level2 = int((starts[:ENTRY_TILE] != smax).sum())
+    e = torch.zeros_like(t)
+    for s in _search_steps(n_level2):
+        probe = starts[t * ENTRY_TILE + e + s]
+        e = torch.where(probe <= pages, e + s, e)
+    k = (t * ENTRY_TILE + e).to(torch.int32)
+    return torch.where(tmin[t] <= pages, k, -1)
+
+
+def check_search_layout(starts, ends, permbits, tile_min) -> None:
+    """Raise unless the operands have the layout the search kernels index:
+    ``starts``, ``ends`` and ``permbits`` of one shape [..., N] and
+    ``tile_min`` [..., T] with N = T * ENTRY_TILE and 1 <= T <= MAX_TILES."""
+    n_tiles = tile_min.shape[-1]
+    if not (starts.shape == ends.shape == permbits.shape) or \
+            starts.shape[:-1] != tile_min.shape[:-1] or \
+            starts.shape[-1] != n_tiles * ENTRY_TILE or \
+            not 1 <= n_tiles <= MAX_TILES:
+        raise ValueError(
+            f"shard operands starts {tuple(starts.shape)}, ends "
+            f"{tuple(ends.shape)}, permbits {tuple(permbits.shape)}, "
+            f"tile_min {tuple(tile_min.shape)}: expected N = T x "
+            f"{ENTRY_TILE} entries with 1 <= T <= {MAX_TILES} tiles")
+
+
 def permcheck_view(ext_addrs, view: ShardView, *, hwpid: int, need: int,
                    mode: str = "adaptive"):
     """Permission check of an i32[B] tagged batch over a prepared
     `ShardView`: the CUDA kernel when the view lies on a CUDA device, the
-    plain version when it lies on the CPU.  ``mode="adaptive"`` (default)
-    lets `hier_profitable` pick the search per call; "hier"/"flat" force
-    one.  Returns (allowed bool[B], idx i32[B])."""
+    plain version when it lies on the CPU.  ``mode`` ("adaptive", "hier"
+    or "flat", the reference's) is checked but changes nothing here: the
+    kernel's search serves every mode.  Returns (allowed bool[B],
+    idx i32[B])."""
     if mode not in MODES:
         raise ValueError(f"unknown permcheck mode {mode!r}")
     ext = as_int32(ext_addrs, view.starts.device).reshape(-1).contiguous()
     if view.starts.device.type == "cpu":
         return permcheck_view_plain(ext, view, hwpid=hwpid, need=need)
-    if mode == "adaptive" and view.n_tiles <= 1:
-        mode = "flat"       # single tile: the summary can't skip anything
-    sizes, sizes_ok = grant_sizes(view.starts, view.ends, view.permbits,
-                                  need)
-    if mode == "adaptive":
-        sel = hier_profitable(pad_batch(ext, ADDR_BLOCK), view.tile_min,
-                              view.tile_max).to(torch.int32).reshape(1)
-    else:
-        sel = torch.zeros(1, dtype=torch.int32, device=ext.device)
-    check_cuda_operands(ext=ext, starts=view.starts, sizes=sizes,
-                        sizes_ok=sizes_ok, tile_min=view.tile_min,
-                        tile_max=view.tile_max, sel=sel)
+    check_cuda_operands(ext=ext, starts=view.starts, ends=view.ends,
+                        permbits=view.permbits, tile_min=view.tile_min)
+    check_search_layout(view.starts, view.ends, view.permbits, view.tile_min)
     b = ext.shape[0]
     allowed = torch.empty(b, dtype=torch.bool, device=ext.device)
     idx = torch.empty(b, dtype=torch.int32, device=ext.device)
     launch("permcheck_launch", ext.data_ptr(), b, view.starts.data_ptr(),
-           sizes.data_ptr(), sizes_ok.data_ptr(), view.n_tiles,
-           view.tile_min.data_ptr(), view.tile_max.data_ptr(),
-           sel.data_ptr(), MODES[mode], int(hwpid), allowed.data_ptr(),
-           idx.data_ptr(), torch.cuda.current_stream(ext.device).cuda_stream)
+           view.ends.data_ptr(), view.permbits.data_ptr(),
+           view.starts.shape[0], view.tile_min.data_ptr(), view.n_tiles,
+           int(need), int(hwpid), allowed.data_ptr(), idx.data_ptr(),
+           torch.cuda.current_stream(ext.device).cuda_stream)
     launches["permcheck"] += 1
     return allowed, idx
 

@@ -19,7 +19,8 @@ from repro_torch.kernels import fabric_egress as tfe
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import memcrypt as tmc
 from repro_torch.kernels import permcheck as tpc
-from torch_parity import (assert_equal, cuda, mk_ext, mk_table,  # noqa: F401
+from torch_parity import (EDGE_SHARDS, assert_equal, cuda,  # noqa: F401
+                          edge_ext, edge_pages, edge_shard, mk_ext, mk_table,
                           words)
 
 SDM = 1 << 22
@@ -103,6 +104,55 @@ def test_fabric_egress_kernel_flat_and_hier_rows(cuda):  # noqa: F811
                                          key1=4)
         assert_equal(ko, po)
         assert_equal(kf, pf)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(EDGE_SHARDS))
+def test_permcheck_kernel_search_edges(cuda, name):  # noqa: F811
+    """The search at its edges (tests/torch_parity.py EDGE_SHARDS): pages
+    on, below and past every entry, adjacent entries, the -1 padding lane,
+    the empty and the full 65,536-entry shard; through the 16-byte path, a
+    ragged tail and a batch that starts 4 bytes off alignment."""
+    rng = np.random.default_rng(len(name))
+    starts, ends, perms = edge_shard(name, rng)
+    view = tpc.make_shard_view(starts, ends, perms, device=cuda)
+    ext = torch.from_numpy(edge_ext(rng, edge_pages(rng, starts, ends)))
+    ext = ext.to(cuda)
+    for x in (ext, ext[:-1], ext[1:]):
+        for need in (1, 2, 3):
+            pa, pi = tpc.permcheck_view_plain(x, view, hwpid=3, need=need)
+            for mode in tpc.MODES:
+                ka, ki = _launched("permcheck", lambda: tpc.permcheck_view(
+                    x, view, hwpid=3, need=need, mode=mode))
+                assert_equal(ka, pa)
+                assert_equal(ki, pi)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1500, 1501, 2048])
+def test_fabric_egress_kernel_search_edges(cuda, batch):  # noqa: F811
+    """Stacked edge shards — rows padded with dead tiles beside a 9-tile
+    row, an empty row, one at the top of the page space — at a batch on the
+    16-byte path (1500, 2048) and a ragged one (1501)."""
+    rng = np.random.default_rng(batch)
+    names = ["single", "tiles_9000", "empty", "tile_1024", "single_top",
+             "pair", "tile_513", "adjacent_from_0"]
+    tables = [edge_shard(n, rng) for n in names]
+    views = [tpc.make_shard_view(*t, device=cuda) for t in tables]
+    hwpids = list(range(1, len(names) + 1))
+    view = stack_views(views, hwpids, range(len(names)), epoch=0)
+    ext = np.stack([edge_ext(rng, rng.choice(edge_pages(rng, s, e), batch),
+                             hwpid=h) for (s, e, _), h in zip(tables, hwpids)])
+    ext = torch.from_numpy(ext).to(cuda)
+    data = convert.u32_from_numpy(words(rng, tuple(ext.shape)), cuda)
+    for need in (1, 2, 3):
+        ko, kf = _launched("fabric_egress", lambda: tfe.fabric_egress(
+            data, ext, view, need=need, key0=7, key1=8))
+        po, pf = tfe.fabric_egress_plain(data, ext, view, need=need, key0=7,
+                                         key1=8)
+        assert_equal(ko, po)
+        assert_equal(kf, pf)
+    assert set(pf.unique().tolist()) == {0, 1, 2, 3, 4}
 
 
 @pytest.mark.cuda

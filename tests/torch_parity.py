@@ -60,3 +60,83 @@ def assert_u32_equal(jax_words, port_words):
     """JAX u32 words against the port's int32 bit patterns."""
     np.testing.assert_array_equal(np.asarray(jax_words, np.uint32),
                                   u32_to_numpy(port_words))
+
+
+INT32_MAX = int(np.iinfo(np.int32).max)
+
+# Shards at the edges of the search kernels' two-level search: no entry, a
+# single entry (one at the top of the page space, so the -1 padding lane's
+# page 0xFFFFFF is covered), runs of adjacent entries (end == next start)
+# with gaps and a first start above page 0 or at it, live counts just past a
+# power of two (a search's step count changes there), one full tile, a tile
+# plus one entry, many tiles, and a full 65,536-entry shard with no sentinel.
+EDGE_SHARDS = {
+    "empty": (0, 1),
+    "single": (1, 100),
+    "single_top": (1, 0xFFFF00),
+    "pair": (2, 9),
+    "adjacent_33": (33, 50),
+    "adjacent_from_0": (17, 0),
+    "tile_513": (513, 7),
+    "tile_1023": (1023, 7),
+    "tile_1024": (1024, 7),
+    "tile_1025": (1025, 7),
+    "tiles_9000": (9000, 3),
+    "full_65536": (65536, 1),
+}
+
+
+def edge_shard(name, rng):
+    """(starts, ends, perms) of the named edge shard: ``n`` entries from
+    ``first`` on, 1-8 pages each, half of them adjacent to the previous one
+    and the rest after a gap of 1-5 pages."""
+    n, first = EDGE_SHARDS[name]
+    if name == "single_top":
+        return (np.array([first], np.int32), np.array([1 << 24], np.int32),
+                np.array([3], np.uint32))
+    lengths = rng.integers(1, 9, n)
+    gaps = np.where(rng.random(n) < 0.5, 0, rng.integers(1, 6, n))
+    gaps[:1] = 0
+    starts = first + np.cumsum(gaps) + np.concatenate(
+        [[0], np.cumsum(lengths)[:-1]])
+    return (starts.astype(np.int32), (starts + lengths).astype(np.int32),
+            rng.integers(0, 4, n).astype(np.uint32))
+
+
+def edge_pages(rng, starts, ends, *, sample=1500):
+    """Pages at every edge of (a sample of) the entries: each start, start
+    - 1, end - 1, end and end + 1, plus page 0, page 1, the page below the
+    first start and the top page 0xFFFFFF."""
+    if starts.size > sample:
+        pick = np.sort(rng.choice(starts.size, sample, replace=False))
+        starts, ends = starts[pick], ends[pick]
+    pages = np.concatenate([
+        [0, 1, 0xFFFFFE, 0xFFFFFF], starts[:1] - 1, starts, starts - 1,
+        ends - 1, ends, ends + 1])
+    return np.clip(pages, 0, 0xFFFFFF).astype(np.int32)
+
+
+def edge_ext(rng, pages, *, hwpid=3):
+    """Tagged addresses over ``pages``: most carry ``hwpid``, the rest are
+    untagged, forged, or the -1 padding lane (ext == -1, page 0xFFFFFF)."""
+    tags = rng.choice(np.array([hwpid] * 5 + [0, hwpid + 2], np.int32),
+                      pages.size)
+    ext = (tags.astype(np.int32) << 24) | pages
+    ext[rng.random(pages.size) < 0.05] = -1
+    return ext.astype(np.int32)
+
+
+def assert_search_precondition(starts, ends, tile_min):
+    """The search kernels' precondition on one shard view row: live
+    entries a prefix, strictly sorted by start, non-empty, non-overlapping;
+    INT32_MAX sentinels after them; ``tile_min`` the first start of each
+    1024-entry tile (INT32_MAX for a dead tile), at most 64 tiles."""
+    s, e, tm = (np.asarray(as_np(x)) for x in (starts, ends, tile_min))
+    assert s.shape == e.shape and s.size == tm.size * 1024
+    assert 1 <= tm.size <= 64
+    n = int((s != INT32_MAX).sum())
+    assert (s[n:] == INT32_MAX).all() and (e[n:] == INT32_MAX).all()
+    assert (np.diff(s[:n].astype(np.int64)) > 0).all()
+    assert (s[:n] < e[:n]).all()
+    assert (e[:max(n - 1, 0)] <= s[1:n]).all()
+    np.testing.assert_array_equal(tm, s[::1024])
