@@ -16,12 +16,13 @@ CUDA toolkit.  Phases, each reported on its own line:
      reference's 2e-5 (f32) / 3e-2 (bf16) on the reference's sweeps and at
      qwen3-4b's serving shapes, prefill and decode, f32 and bf16), and
      timed beside its bound and, where one PyTorch call computes the same
-     function, that call.  A lookup's bound counts the probes of a search
-     of the sorted shard (``search_probes``).  The flash shapes are timed
-     L2-cold, over a rotation of q/k/v sets larger than twice the L2 (as
-     each layer of a decode step finds its own cache), with the L2-warm
-     time beside; each regime must run exactly its own kernels
-     (``FLASH_PATHS``), and the f32 prefill kernel must not spill;
+     function, that call.  A lookup's bound counts the probes and the
+     table words of a search of the sorted shard (``search_work``).  The
+     flash shapes are timed L2-cold, over a rotation of q/k/v sets larger
+     than twice the L2 (as each layer of a decode step finds its own
+     cache), with the L2-warm time beside; each regime must run exactly
+     its own kernels (``FLASH_PATHS``), and the f32 prefill kernel must
+     not spill;
   4. main path 1, the checked egress path — the quickstart flow on one
      host through the port's FabricManager and ops, then a 255-host /
      127-tenant ShardedFabric (1 GiB SDM, 8192-entry table, 4096 words per
@@ -185,23 +186,15 @@ def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def table_bytes(view) -> float:
-    """Bytes of a shard's (or stacked shards') lookup operands that the
-    function must read once: 12 per live entry (start, size, granted size;
-    the INT32_MAX padding sentinels carry nothing) and 8 per tile summary
-    (min, max)."""
-    live = int((view.starts != INT32_MAX).sum())
-    return 12.0 * live + 8.0 * view.tile_min.numel()
-
-
 def fabric_bound(ext, fault, view) -> tuple[float, str]:
     """Bound of one fabric egress over this data: 16 bytes per word (data
-    and address in, word and fault out), the live table, 8 bytes per row
-    (hwpid, flat/hier choice); the search's probes on every word and the
-    keystream on the granted words."""
-    return bound(16 * ext.numel() + table_bytes(view) + 8 * ext.shape[0],
+    and address in, word and fault out), 4 per row (its HWPID) and the
+    table words the search reads; the search's probes on every word and
+    the keystream on the granted words."""
+    probes, table_bytes = search_work(ext & 0xFFFFFF, view)
+    return bound(16 * ext.numel() + 4 * ext.shape[0] + table_bytes,
                  KEYSTREAM_OPS * int((fault == 0).sum())
-                 + PROBE_OPS * search_probes(ext & 0xFFFFFF, view))
+                 + PROBE_OPS * probes)
 
 
 def compare(name: str, got, want) -> tuple[int, int]:
@@ -242,29 +235,68 @@ def trace(rng, starts, batch: int, sdm_pages: int, kind: str, hwpid: int,
     return ((tags << 24) | (pages & 0xFFFFFF)).astype(np.int32)
 
 
-def live_per_tile(view_starts):
-    """Live (non-sentinel) entries in each 1024-entry tile, [..., T]."""
-    return (view_starts != INT32_MAX).reshape(
-        *view_starts.shape[:-1], -1, pc.ENTRY_TILE).sum(-1)
-
-
 def ceil_log2(x: torch.Tensor) -> torch.Tensor:
     """ceil(log2 x) elementwise, 0 for x <= 1."""
-    return torch.ceil(torch.log2(x.clamp(min=1).to(torch.float64)))
+    return torch.ceil(torch.log2(x.clamp(min=1).to(torch.float64))).long()
 
 
-def search_probes(pages, view) -> float:
-    """Probes a search of the sorted shard needs for this data: per address
-    ceil(log2 live tiles) to find the last live tile whose first start is
-    at or below its page, ceil(log2 live entries of that tile) to find the
-    entry, and 1 to read that entry's end and permission bits.  ``pages``
-    [..., B] against a view with starts [..., N]."""
-    live = live_per_tile(view.starts)                           # [..., T]
-    tile = (pages[..., None] >= view.tile_min[..., None, :]).sum(-1) - 1
-    in_tile = torch.take_along_dim(live, tile.clamp(min=0), dim=-1)
-    in_tile = torch.where(tile >= 0, in_tile, 0)
-    live_tiles = (live > 0).sum(-1, keepdim=True)
-    return float((ceil_log2(live_tiles) + ceil_log2(in_tile) + 1).sum())
+def search_work(pages, view) -> tuple[float, float]:
+    """(probes, table bytes) of a search of the sorted shard for this data.
+
+    Per address: ceil(log2 live tiles) probes of the live tiles' first
+    starts, for the last one at or below its page; ceil(log2 live entries
+    of that tile) probes of the tile's starts, for the last one at or below
+    (none when the page lies below the shard's first start); 1 read of the
+    entry found.  Bytes: 4 for each distinct first start or start that a
+    probe reads, 4 for the end of each distinct entry found and 4 for its
+    permission bits where it covers the page: each table word once,
+    however many addresses read it.  ``pages`` [..., B] against a view
+    with starts [..., N]; each row searches its own shard."""
+    n = view.starts.shape[-1]
+    starts = view.starts.reshape(-1, n).long()
+    rows = starts.shape[0]
+    ends = view.ends.reshape(rows, n).long()
+    tmin = view.tile_min.reshape(rows, -1).long()
+    n_tiles = tmin.shape[1]
+    pages = pages.reshape(rows, -1).long()
+    live = (starts != INT32_MAX).reshape(rows, n_tiles, -1).sum(-1)
+    row = torch.arange(rows, device=pages.device)[:, None]
+
+    def search(n_live, read, base, width):
+        """A fixed-trip search for the last value <= page among the
+        ``n_live`` values of ``read`` from column ``base`` on: ceil(log2
+        n_live) probes.  Returns (offset found, probes, flat indices
+        read)."""
+        first = torch.where(n_live > 1,
+                            1 << (ceil_log2(n_live) - 1).clamp(min=0), 0)
+        off = torch.zeros_like(pages)
+        probes = torch.zeros_like(pages)
+        seen = []
+        s = 1 << max(width - 1, 1).bit_length() - 1
+        while s:
+            on = s <= first
+            idx = (base + off + s).clamp(max=read.shape[1] - 1)
+            off = torch.where(on & (read.gather(1, idx) <= pages), off + s,
+                              off)
+            probes += on
+            seen.append((row * read.shape[1] + idx)[on.expand_as(idx)])
+            s >>= 1
+        return off, probes, seen
+
+    t, p1, seen_t = search((live > 0).sum(-1, keepdim=True), tmin, 0,
+                           n_tiles)
+    found = tmin.gather(1, t) <= pages
+    seen_t.append(row * n_tiles + t)
+    in_tile = torch.where(found, live.gather(1, t), 0)
+    e, p2, seen_s = search(in_tile, starts, t * pc.ENTRY_TILE,
+                           pc.ENTRY_TILE)
+    k = (t * pc.ENTRY_TILE + e).clamp(max=n - 1)
+    covered = found & (pages < ends.gather(1, k))
+    flat_k = row * n + k
+    words = sum(torch.unique(torch.cat([x.reshape(-1) for x in xs])).numel()
+                for xs in (seen_t, seen_s, [flat_k[found]],
+                           [flat_k[covered]]))
+    return float((p1 + p2 + 1).sum()), 4.0 * words
 
 
 def library_permcheck(ext, starts, ends, permbits, hwpid: int, need: int):
@@ -311,8 +343,8 @@ def kernel_phases(dev, results: dict) -> None:
     for kind in ("hot", "uniform"):
         ext = torch.from_numpy(trace(rng, starts, b, sdm, kind, 3)).to(dev)
         chosen = pc.selected_mode(ext, view)
-        b_ms, b_by = bound(9 * b + table_bytes(view),
-                           PROBE_OPS * search_probes(ext & 0xFFFFFF, view))
+        probes, table_bytes = search_work(ext & 0xFFFFFF, view)
+        b_ms, b_by = bound(9 * b + table_bytes, PROBE_OPS * probes)
         want = pc.permcheck_view_plain(ext, view, hwpid=3, need=1)
         plain_ms = cuda_ms(lambda: pc.permcheck_view_plain(
             ext, view, hwpid=3, need=1), 1)
@@ -360,9 +392,9 @@ def kernel_phases(dev, results: dict) -> None:
         faults = torch.bincount(want[1], minlength=6).tolist()
         fault_mix += faults
         n_ok = int((want[1] == 0).sum())
-        b_ms, b_by = bound(16 * b + table_bytes(view),
-                           KEYSTREAM_OPS * n_ok
-                           + PROBE_OPS * search_probes(ext & 0xFFFFFF, view))
+        probes, table_bytes = search_work(ext & 0xFFFFFF, view)
+        b_ms, b_by = bound(16 * b + table_bytes,
+                           KEYSTREAM_OPS * n_ok + PROBE_OPS * probes)
         call = (lambda: mc.checked_memcrypt_view(d, ext, view, **args))
         ms = cuda_ms(call, 5)
         plain_ms = cuda_ms(lambda: mc.checked_memcrypt_view_plain(
@@ -848,21 +880,30 @@ class AttendCheck:
 
 class FabricCheck:
     """Stands in for ``fabric_egress`` during the serving run: launches the
-    kernel and holds each launch's words and fault codes against the plain
-    version on the same inputs."""
+    kernel and keeps a copy of each launch's operands and results, which
+    `check` holds against the plain version once the timed run is over."""
 
     def __init__(self):
         self.kernel = fe.fabric_egress
-        self.calls = 0
-        self.words = 0
+        self.launches = []
 
     def __call__(self, data, ext_addrs, view, **kw):
         got = self.kernel(data, ext_addrs, view, **kw)
-        compare("fabric_egress (serving)", got,
-                fe.fabric_egress_plain(data, ext_addrs, view, **kw))
-        self.calls += 1
-        self.words += got[0].numel()
+        copy = view._replace(**{f: getattr(view, f).clone() for f in (
+            "starts", "ends", "permbits", "tile_min", "tile_max", "hwpids")})
+        self.launches.append((data.clone(), ext_addrs.clone(), copy, kw,
+                              tuple(x.clone() for x in got)))
         return got
+
+    def check(self) -> int:
+        """Compare every recorded launch with the plain version on its own
+        operands, code for code; returns the words compared."""
+        words = 0
+        for data, ext, view, kw, got in self.launches:
+            compare("fabric_egress (serving)", got,
+                    fe.fabric_egress_plain(data, ext, view, **kw))
+            words += got[0].numel()
+        return words
 
 
 def set_attend(params, fn) -> None:
@@ -906,12 +947,13 @@ def serve_main_path(dev) -> dict:
     finally:
         fe.fabric_egress = fabric_check.kernel
     log(f"main serve path launches: {counts}")
-    if fabric_check.calls != counts["fabric_egress"]:
-        raise AssertionError(f"{fabric_check.calls} checked fabric calls, "
+    n_checked = len(fabric_check.launches)
+    if n_checked != counts["fabric_egress"]:
+        raise AssertionError(f"{n_checked} recorded fabric calls, "
                              f"{counts['fabric_egress']} launches")
-    log(f"main serve: {fabric_check.calls} fabric launches held against "
-        f"the plain version on their own inputs: 0 mismatching words and "
-        f"fault codes over {fabric_check.words} words")
+    log(f"main serve: {n_checked} fabric launches held against the plain "
+        f"version on their own inputs after the run: 0 mismatching words "
+        f"and fault codes over {fabric_check.check()} words")
     for name in ("flash_attention", "fabric_egress"):
         if counts[name] == 0:
             raise AssertionError(f"{name} never launched on the serving "

@@ -3,13 +3,13 @@
 //
 // Replaces src/repro/kernels/memcrypt.py:checked_memcrypt_view_pallas
 // (_checked_memcrypt_kernel, with _cover_search / _cover_tile from
-// permcheck.py).  Bound on the H100: bytes — 16 per word and 12 per live
-// entry, against ~52 integer operations per granted word for the keystream
-// and ~3 per probe of a search of the sorted shard.  Design: the block-wide
-// slab scan (`egress::block_lookup`, ~3 operations per word and evaluated
-// entry, so far above that bound) for "granted" and "covered", then the
-// keystream computed only on granted lanes; each word is read once and
-// written once.
+// permcheck.py).  Bound on the H100: bytes — 16 per word and 4 per table
+// word a search of the sorted shard reads, against ~52 integer operations
+// per granted word for the keystream and ~3 per probe of that search.
+// Design: the block-wide slab scan (`egress::block_lookup`, ~3 operations
+// per word and evaluated entry, so far above that bound) for "granted" and
+// "covered", then the keystream computed only on granted lanes; each word
+// is read once and written once.
 #include "egress.cuh"
 
 namespace {

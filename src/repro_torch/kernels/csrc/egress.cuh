@@ -2,8 +2,9 @@
 // checked_memcrypt, fabric_egress).  Keeping the keystream and the lookup in
 // one header makes the kernels bit-identical to each other by construction:
 // kernels 1, 3 and 4 run the same 12-round ARX keystream; kernels 2 and 4
-// the same per-lane sorted search (`shard_prologue` + `lane_search`), kernel
-// 3 the block-wide slab scan (`block_lookup`).
+// the same per-lane sorted search (`shard_prologue` + `lane_search`) and
+// vector loads and stores, kernel 3 the block-wide slab scan
+// (`block_lookup`).
 //
 // u32 words cross the C interface as int32 (torch has no uint32 arithmetic
 // on the CPU); every kernel reinterprets them as uint32_t and hands the same
@@ -76,9 +77,16 @@ struct Verdict {
 //     tile), as core/table.tile_summary builds it.
 // Then at most one entry covers a page: the last entry whose start <= page.
 // Two levels find it: the last live tile t with tile_min[t] <= page, from
-// shared memory; then the last entry of tile t with start <= page.  Both are
-// fixed-trip binary searches over power-of-two steps, so every lane of a
-// block runs the same number of probes and no lane diverges.
+// shared memory; then the last entry of tile t with start <= page, through
+// the read-only cache, whose top levels every lane shares (from shared
+// memory for a shard with one live tile).  Both are fixed-trip binary
+// searches over power-of-two steps, so every lane of a block runs the same
+// number of probes and no lane diverges.
+//
+// A shard that breaks the precondition makes the search miss an entry that
+// covers the page, never report one that does not: `lane_search` returns k
+// only where starts[k] <= page, and `entry_verdict` grants only where also
+// page < ends[k].  So it fails closed.
 // ---------------------------------------------------------------------------
 
 // Block-uniform facts about one shard, set up by `shard_prologue`.
@@ -86,10 +94,9 @@ struct Shard {
   const int32_t* tmin;    // shared: tile_min, EMPTY_START past the live tiles
   const int32_t* starts;  // device: the shard's starts
   const int32_t* tile;    // shared: tile 0's live starts, when `staged`
-  int live_tiles;         // tiles holding a live entry (a prefix)
   int tile_live;          // live entries staged in `tile`
-  int tile_step;          // first level-1 step: largest power of 2 < live_tiles
-  int entry_step;         // first level-2 step
+  int tile_step;          // first level-1 step: step_below(live tiles)
+  int entry_step;         // first level-2 step over `tile`, when `staged`
   bool staged;            // one live tile, staged in shared memory
 };
 
@@ -104,22 +111,17 @@ __device__ __forceinline__ int step_below(int n) {
 // ENTRY_TILE.  A shard whose live entries fit in its first tile (a host's
 // resident shard at the 255-host deployment) is staged in shared memory,
 // blockDim.x entries at a time up to the first sentinel, and its level-2
-// search spans only its live entries.
+// search spans only its live entries: 0-1 probes for the 1-2 entries of a
+// host's shard there, where the search of a whole tile takes 10.
 __device__ __forceinline__ Shard shard_prologue(
     const int32_t* __restrict__ starts, const int32_t* __restrict__ tile_min,
     int n_tiles, int32_t* s_tmin, int32_t* s_tile) {
   const int tid = threadIdx.x;
   const int32_t tm = tid < n_tiles ? tile_min[tid] : EMPTY_START;
   if (tid < MAX_TILES) s_tmin[tid] = tm;
-  Shard sh;
-  sh.tmin = s_tmin;
-  sh.starts = starts;
-  sh.tile = s_tile;
-  sh.live_tiles = __syncthreads_count(tm != EMPTY_START);
-  sh.tile_live = 0;
-  sh.tile_step = step_below(sh.live_tiles);
-  sh.entry_step = ENTRY_TILE / 2;
-  sh.staged = sh.live_tiles == 1;
+  const int live_tiles = __syncthreads_count(tm != EMPTY_START);
+  Shard sh{s_tmin, starts, s_tile, 0, step_below(live_tiles), 0,
+           live_tiles == 1};
   if (sh.staged) {
     for (int base = 0; base < ENTRY_TILE; base += blockDim.x) {
       const int32_t v = starts[base + tid];
@@ -159,19 +161,22 @@ __device__ __forceinline__ void lane_search(const int32_t (&page)[V],
         if (e[j] + s < sh.tile_live && sh.tile[e[j] + s] <= page[j])
           e[j] += s;
     }
-  } else {
-    const int32_t* base[V];
 #pragma unroll
-    for (int j = 0; j < V; ++j) base[j] = sh.starts + t[j] * ENTRY_TILE;
-    for (int s = sh.entry_step; s > 0; s >>= 1) {
+    for (int j = 0; j < V; ++j) k[j] = sh.tile[e[j]] <= page[j] ? e[j] : -1;
+    return;
+  }
+  const int32_t* base[V];
 #pragma unroll
-      for (int j = 0; j < V; ++j)
-        if (__ldg(base[j] + e[j] + s) <= page[j]) e[j] += s;
-    }
+  for (int j = 0; j < V; ++j) base[j] = sh.starts + t[j] * ENTRY_TILE;
+#pragma unroll
+  for (int s = ENTRY_TILE / 2; s > 0; s >>= 1) {
+#pragma unroll
+    for (int j = 0; j < V; ++j)
+      if (__ldg(base[j] + e[j] + s) <= page[j]) e[j] += s;
   }
 #pragma unroll
   for (int j = 0; j < V; ++j)
-    k[j] = sh.tmin[t[j]] <= page[j] ? t[j] * ENTRY_TILE + e[j] : -1;
+    k[j] = __ldg(base[j] + e[j]) <= page[j] ? t[j] * ENTRY_TILE + e[j] : -1;
 }
 
 // The verdict for `page` from its search result: the caller's one read of
@@ -186,6 +191,55 @@ __device__ __forceinline__ Verdict entry_verdict(
     v.any_ok = (__ldg(permbits + k) & need) == need;
   }
   return v;
+}
+
+// The search kernels take VEC consecutive int32 operands per thread: one
+// 16-byte load or store on the WIDE path (the length a multiple of VEC and
+// every operand 16-byte aligned, as `aligned16` tests on the host), else
+// element by element up to the length `n`.  `load_vec` fills the lanes past
+// `n` with `fill`; the stores write only lanes below it.
+static_assert(VEC == 4, "one 16-byte load or store carries VEC words");
+
+inline bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+template <bool WIDE>
+__device__ __forceinline__ void load_vec(const int32_t* __restrict__ p,
+                                         int64_t i0, int64_t n, int32_t fill,
+                                         int32_t (&v)[VEC]) {
+  if (WIDE && i0 < n) {
+    const int4 q = *reinterpret_cast<const int4*>(p + i0);
+    v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) v[j] = !WIDE && i0 + j < n ? p[i0 + j] : fill;
+}
+
+template <bool WIDE>
+__device__ __forceinline__ void store_vec(int32_t* __restrict__ p, int64_t i0,
+                                          int64_t n,
+                                          const int32_t (&v)[VEC]) {
+  if (WIDE) {
+    *reinterpret_cast<int4*>(p + i0) = make_int4(v[0], v[1], v[2], v[3]);
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < VEC; ++j)
+    if (i0 + j < n) p[i0 + j] = v[j];
+}
+
+template <bool WIDE>
+__device__ __forceinline__ void store_vec(bool* __restrict__ p, int64_t i0,
+                                          int64_t n, const bool (&v)[VEC]) {
+  if (WIDE) {
+    *reinterpret_cast<uchar4*>(p + i0) = make_uchar4(v[0], v[1], v[2], v[3]);
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < VEC; ++j)
+    if (i0 + j < n) p[i0 + j] = v[j];
 }
 
 // ---------------------------------------------------------------------------

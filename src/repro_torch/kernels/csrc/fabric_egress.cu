@@ -3,20 +3,20 @@
 //
 // Replaces src/repro/kernels/fabric_egress.py:fabric_egress_pallas
 // (_fabric_egress_impl, _fabric_egress_kernel).  Bound on the H100: bytes —
-// 16 per word (data and address in, word and fault out) against ~52
-// integer operations per granted word for the keystream and ~3 per search
-// probe.  Design: a 2-D grid (word block, row); each block finds its row's
-// shard by blockIdx.y and each lane binary-searches it
-// (`egress::lane_search`), so a word costs O(log N) probes, not a scan of
-// the row's slab.  At the 255-host deployment a row's live entries fit in
-// one 1024-entry tile: the block stages that tile (4 KB) in shared memory
-// once and searches only its live entries.  Each thread takes VEC
-// consecutive words with 16-byte loads of data and address and 16-byte
-// stores of word and fault, and runs the keystream on granted words only.
-// The tenant HWPID is a per-row device operand, so admitting a tenant never
-// rebuilds or re-launches anything.  Rows are not padded: the keystream
-// position is still counted as row * bucket_pad(B, 1024) + lane, as the
-// reference pads each row.
+// 16 per word (data and address in, word and fault out), 4 per row (its
+// HWPID) and 4 per table word the search reads, against ~52 integer
+// operations per granted word for the keystream and ~3 per search probe.
+// Design: a 2-D grid (word block, row); each block finds its row's shard by
+// blockIdx.y and each lane binary-searches it (`egress::lane_search`), so a
+// word costs O(log N) probes, not a scan of the row's slab.  At the
+// 255-host deployment a row's live entries fit in one 1024-entry tile: the
+// block stages that tile in shared memory and searches only its live
+// entries.  Each thread takes VEC consecutive words with 16-byte loads of
+// data and address and 16-byte stores of word and fault, and runs the
+// keystream on granted words only.  The tenant HWPID is a per-row device
+// operand, so admitting a tenant never rebuilds or re-launches anything.
+// Rows are not padded: the keystream position is still counted as
+// row * bucket_pad(B, 1024) + lane, as the reference pads each row.
 #include "egress.cuh"
 
 namespace {
@@ -33,28 +33,16 @@ fabric_egress_kernel(const int32_t* __restrict__ data,
                      int32_t need, uint32_t k0, uint32_t k1,
                      int32_t* __restrict__ out, int32_t* __restrict__ fault) {
   constexpr int V = egress::VEC;
-  static_assert(V == 4, "one 16-byte load or store carries V words");
   __shared__ int32_t s_tmin[egress::MAX_TILES];
   __shared__ int32_t s_tile[egress::ENTRY_TILE];
   const int64_t row = blockIdx.y;
   // the words first: their loads overlap the shard prologue's
   const int64_t lane0 =
       (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) * V;
-  const int64_t i0 = row * b + lane0;
-  int32_t w[V] = {0, 0, 0, 0}, e[V] = {-1, -1, -1, -1}, page[V];
-  if (WIDE && lane0 < b) {    // b % V == 0 and every operand 16-byte aligned
-    const int4 qd = *reinterpret_cast<const int4*>(data + i0);
-    const int4 qe = *reinterpret_cast<const int4*>(ext + i0);
-    w[0] = qd.x; w[1] = qd.y; w[2] = qd.z; w[3] = qd.w;
-    e[0] = qe.x; e[1] = qe.y; e[2] = qe.z; e[3] = qe.w;
-  } else if (!WIDE) {
-#pragma unroll
-    for (int j = 0; j < V; ++j)
-      if (lane0 + j < b) {
-        w[j] = data[i0 + j];
-        e[j] = ext[i0 + j];
-      }
-  }
+  const int64_t ro = row * b;
+  int32_t w[V], e[V], page[V];
+  egress::load_vec<WIDE>(data + ro, lane0, b, 0, w);
+  egress::load_vec<WIDE>(ext + ro, lane0, b, -1, e);
   const int32_t hwpid = hwpids[row];
   const int64_t eo = row * n_entries;
   const egress::Shard sh = egress::shard_prologue(
@@ -73,21 +61,8 @@ fabric_egress_kernel(const int32_t* __restrict__ data,
                         static_cast<uint32_t>(row * bp + lane0 + j), &o[j],
                         &f[j]);
   }
-  if (WIDE) {
-    *reinterpret_cast<int4*>(out + i0) = make_int4(o[0], o[1], o[2], o[3]);
-    *reinterpret_cast<int4*>(fault + i0) = make_int4(f[0], f[1], f[2], f[3]);
-  } else {
-#pragma unroll
-    for (int j = 0; j < V; ++j)
-      if (lane0 + j < b) {
-        out[i0 + j] = o[j];
-        fault[i0 + j] = f[j];
-      }
-  }
-}
-
-bool aligned16(const void* p) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  egress::store_vec<WIDE>(out + ro, lane0, b, o);
+  egress::store_vec<WIDE>(fault + ro, lane0, b, f);
 }
 
 }  // namespace
@@ -106,8 +81,9 @@ extern "C" int fabric_egress_launch(
       static_cast<int64_t>(egress::SEARCH_THREADS) * egress::VEC;
   const dim3 grid(static_cast<unsigned>((b + per_block - 1) / per_block),
                   static_cast<unsigned>(rows));
-  const bool wide = b % egress::VEC == 0 && aligned16(data) &&
-                    aligned16(ext) && aligned16(out) && aligned16(fault);
+  const bool wide = b % egress::VEC == 0 && egress::aligned16(data) &&
+                    egress::aligned16(ext) && egress::aligned16(out) &&
+                    egress::aligned16(fault);
   auto kernel = wide ? fabric_egress_kernel<true>
                      : fabric_egress_kernel<false>;
   kernel<<<grid, egress::SEARCH_THREADS, 0,

@@ -6,15 +6,15 @@
 // Replaces src/repro/kernels/permcheck.py:permcheck_view_pallas
 // (_permcheck_flat_kernel, _permcheck_hier_kernel,
 // _permcheck_adaptive_kernel).  Bound on the H100: bytes — 9 per address
-// and 12 per live entry, against ~3 integer operations per probe and
-// ceil(log2 live tiles) + ceil(log2 live entries of the tile) + 1 probes per
-// address.  The TPU kernel compares every address with every entry of the
-// tiles it walks, keeping the shard (up to 768 KiB) resident in VMEM; here
-// each lane binary-searches the sorted shard (`egress::lane_search`): the
-// tile summary from shared memory, then the tile's starts through the
-// read-only cache, whose top levels every lane shares.  Each thread takes
-// VEC consecutive addresses with 16-byte loads and stores, so its VEC
-// searches overlap their loads.
+// and 4 per table word the search reads, against ~3 integer operations per
+// probe and ceil(log2 live tiles) + ceil(log2 live entries of the tile) + 1
+// probes per address.  The TPU kernel compares every address with every
+// entry of the tiles it walks, keeping the shard (up to 768 KiB) resident in
+// VMEM; here each lane binary-searches the sorted shard
+// (`egress::lane_search`): the tile summary from shared memory, then the
+// tile's starts through the read-only cache, whose top levels every lane
+// shares.  Each thread takes VEC consecutive addresses with 16-byte loads
+// and stores, so its VEC searches overlap their loads.
 #include "egress.cuh"
 
 namespace {
@@ -29,21 +29,13 @@ permcheck_kernel(const int32_t* __restrict__ ext, int64_t b,
                  int32_t need, int32_t hwpid, bool* __restrict__ allowed,
                  int32_t* __restrict__ idx) {
   constexpr int V = egress::VEC;
-  static_assert(V == 4, "one 16-byte load or store carries V words");
   __shared__ int32_t s_tmin[egress::MAX_TILES];
   __shared__ int32_t s_tile[egress::ENTRY_TILE];
   // the addresses first: their loads overlap the shard prologue's
   const int64_t i0 =
       (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) * V;
-  int32_t e[V] = {-1, -1, -1, -1}, page[V];
-  if (WIDE && i0 < b) {    // b % V == 0 and every operand 16-byte aligned
-    const int4 q = *reinterpret_cast<const int4*>(ext + i0);
-    e[0] = q.x; e[1] = q.y; e[2] = q.z; e[3] = q.w;
-  } else if (!WIDE) {
-#pragma unroll
-    for (int j = 0; j < V; ++j)
-      if (i0 + j < b) e[j] = ext[i0 + j];
-  }
+  int32_t e[V], page[V];
+  egress::load_vec<WIDE>(ext, i0, b, -1, e);
   const egress::Shard sh =
       egress::shard_prologue(starts, tile_min, n_tiles, s_tmin, s_tile);
   if (i0 >= b) return;
@@ -60,23 +52,8 @@ permcheck_kernel(const int32_t* __restrict__ ext, int64_t b,
     ok[j] = (e[j] >> egress::HWPID_SHIFT) == hwpid && v.any_ok;
     id[j] = v.idx;
   }
-  if (WIDE) {
-    *reinterpret_cast<int4*>(idx + i0) = make_int4(id[0], id[1], id[2],
-                                                   id[3]);
-    *reinterpret_cast<uchar4*>(allowed + i0) = make_uchar4(ok[0], ok[1],
-                                                           ok[2], ok[3]);
-  } else {
-#pragma unroll
-    for (int j = 0; j < V; ++j)
-      if (i0 + j < b) {
-        idx[i0 + j] = id[j];
-        allowed[i0 + j] = ok[j];
-      }
-  }
-}
-
-bool aligned16(const void* p) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  egress::store_vec<WIDE>(idx, i0, b, id);
+  egress::store_vec<WIDE>(allowed, i0, b, ok);
 }
 
 }  // namespace
@@ -95,9 +72,9 @@ extern "C" int permcheck_launch(const void* ext, int64_t b,
       static_cast<int64_t>(egress::SEARCH_THREADS) * egress::VEC;
   const unsigned blocks = static_cast<unsigned>((b + per_block - 1) /
                                                 per_block);
-  const bool wide = b % egress::VEC == 0 && aligned16(ext) &&
-                    aligned16(idx) && reinterpret_cast<uintptr_t>(allowed) %
-                    egress::VEC == 0;
+  const bool wide = b % egress::VEC == 0 && egress::aligned16(ext) &&
+                    egress::aligned16(idx) &&
+                    reinterpret_cast<uintptr_t>(allowed) % egress::VEC == 0;
   auto kernel = wide ? permcheck_kernel<true> : permcheck_kernel<false>;
   kernel<<<blocks, egress::SEARCH_THREADS, 0,
            static_cast<cudaStream_t>(stream)>>>(

@@ -225,11 +225,13 @@ def lane_search_plain(pages, starts, tile_min) -> torch.Tensor:
 
     Level 1 searches the live tiles' first starts (``tile_min``, INT32_MAX
     for a dead tile) for the last one <= page; level 2 searches that tile's
-    starts for the last one <= page.  A shard with one live tile searches
-    only that tile's live entries, as the kernel does from shared memory.
-    ``starts`` i32[T * ENTRY_TILE] must meet the kernels' precondition
-    (sorted, non-overlapping, sentinel tail); then the result is the only
-    entry that can cover the page.  Returns i32[B].
+    starts for the last one <= page, and the entry found is returned only
+    if its start is.  A shard with one live tile searches only that tile's
+    live entries, as the kernel does from shared memory.  ``starts``
+    i32[T * ENTRY_TILE] should meet the kernels' precondition (sorted,
+    non-overlapping, sentinel tail); then the result is the only entry that
+    can cover the page.  On a shard that breaks it, the result still never
+    lies above the page.  Returns i32[B].
     """
     pages = as_int32(pages, starts.device).reshape(-1)
     n_tiles = tile_min.shape[0]
@@ -248,8 +250,8 @@ def lane_search_plain(pages, starts, tile_min) -> torch.Tensor:
     for s in _search_steps(n_level2):
         probe = starts[t * ENTRY_TILE + e + s]
         e = torch.where(probe <= pages, e + s, e)
-    k = (t * ENTRY_TILE + e).to(torch.int32)
-    return torch.where(tmin[t] <= pages, k, -1)
+    k = t * ENTRY_TILE + e
+    return torch.where(starts[k] <= pages, k, -1).to(torch.int32)
 
 
 def check_search_layout(starts, ends, permbits, tile_min) -> None:

@@ -19,9 +19,10 @@ from repro_torch.kernels import fabric_egress as tfe
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import memcrypt as tmc
 from repro_torch.kernels import permcheck as tpc
-from torch_parity import (EDGE_SHARDS, assert_equal, cuda,  # noqa: F401
+from torch_parity import (BROKEN_SHARDS, EDGE_SHARDS,  # noqa: F401
+                          assert_equal, broken_pages, broken_shard, cuda,
                           edge_ext, edge_pages, edge_shard, mk_ext, mk_table,
-                          words)
+                          search_verdict, words)
 
 SDM = 1 << 22
 
@@ -153,6 +154,41 @@ def test_fabric_egress_kernel_search_edges(cuda, batch):  # noqa: F811
         assert_equal(ko, po)
         assert_equal(kf, pf)
     assert set(pf.unique().tolist()) == {0, 1, 2, 3, 4}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", BROKEN_SHARDS)
+def test_search_kernels_fail_closed_on_a_broken_shard(cuda,  # noqa: F811
+                                                      name):
+    """On an unsorted, overlapping shard both kernels give what the probe
+    sequence gives on the CPU (`search_verdict`), so they grant no page
+    the plain version denies: page 50 of "four" lies in no entry."""
+    rng = np.random.default_rng(len(name) + 20)
+    starts, ends, perms = broken_shard(name, rng)
+    view = tpc.make_shard_view(starts, ends, perms, device=cuda)
+    host = tpc.make_shard_view(starts, ends, perms, device="cpu")
+    pages, ext = broken_pages(rng, starts, ends)
+    x = torch.from_numpy(ext).to(cuda)
+    for need in (1, 2, 3):
+        ka, ki = _launched("permcheck", lambda: tpc.permcheck_view(
+            x, view, hwpid=3, need=need))
+        sa, si = search_verdict(ext, host, hwpid=3, need=need)
+        assert_equal(ka, sa)
+        assert_equal(ki, si)
+        pa, _ = tpc.permcheck_view_plain(x, view, hwpid=3, need=need)
+        assert not bool((ka & ~pa).any())
+    if name == "four":
+        assert not bool(ka[torch.from_numpy(pages == 50).to(cuda)].any())
+    fview = stack_views([view], [3], [0], epoch=0)
+    data = convert.u32_from_numpy(words(rng, (1, ext.size)), cuda)
+    ko, kf = _launched("fabric_egress", lambda: tfe.fabric_egress(
+        data, x[None], fview, need=1, key0=7, key1=8))
+    po, pf = tfe.fabric_egress_plain(data, x[None], fview, need=1, key0=7,
+                                     key1=8)
+    granted = kf[0] == 0
+    assert_equal(granted, search_verdict(ext, host, hwpid=3, need=1)[0])
+    assert bool((pf[0][granted] == 0).all())
+    assert_equal(ko[0][granted], po[0][granted])
 
 
 @pytest.mark.cuda

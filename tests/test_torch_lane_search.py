@@ -4,7 +4,8 @@
 step for step; here it is held, on every edge the search has, against an
 independent ``np.searchsorted``, against the port's plain version
 (``ref.permcheck``) and against the JAX package's Pallas kernels
-(permcheck, fabric egress) in interpret mode.  The views the fabric builds
+(permcheck, fabric egress) in interpret mode; on a shard that breaks the
+precondition it must fail closed.  The views the fabric builds
 after admit, evict, partial release and shared grants must meet the
 search's precondition (sorted, non-overlapping, sentinel tail).  The CUDA
 kernels run the same edge cases on the card in test_torch_cuda.py."""
@@ -21,22 +22,10 @@ from repro_torch.core import ShardedFabric, pack_ext_addr
 from repro_torch.core.fabric import stack_views
 from repro_torch.kernels import ref
 from repro_torch.kernels import permcheck as tpc
-from torch_parity import (EDGE_SHARDS, assert_equal,
+from torch_parity import (BROKEN_SHARDS, EDGE_SHARDS, assert_equal,
                           assert_search_precondition, assert_u32_equal,
-                          edge_ext, edge_pages, edge_shard, words)
-
-
-def search_verdict(ext_addrs, view, *, hwpid, need):
-    """The permission check as the kernels compute it: the search, then
-    one read of the found entry's end and permission bits.  Returns
-    (allowed bool[B], idx i32[B])."""
-    ext = torch.as_tensor(np.asarray(ext_addrs, np.int32)).reshape(-1)
-    page = ext & 0xFFFFFF
-    k = tpc.lane_search_plain(page, view.starts, view.tile_min)
-    kc = k.clamp(min=0).long()
-    covered = (k >= 0) & (page < view.ends[kc])
-    ok = covered & ((view.permbits[kc] & need) == need)
-    return ((ext >> 24) == hwpid) & ok, torch.where(covered, k, -1)
+                          broken_pages, broken_shard, edge_ext, edge_pages,
+                          edge_shard, search_verdict, words)
 
 
 def _row(view, r):
@@ -79,6 +68,29 @@ def test_search_verdict_matches_reference_and_jax(name):
                                            mode=mode)
         assert_equal(ja, sa)
         assert_equal(ji, si)
+
+
+@pytest.mark.parametrize("name", BROKEN_SHARDS)
+def test_search_fails_closed_on_a_broken_shard(name):
+    """On an unsorted, overlapping shard the search may miss the entry that
+    covers a page, but it grants no page the plain version denies, and the
+    entry it names covers the page; page 50 of "four" lies in no entry and
+    is denied."""
+    rng = np.random.default_rng(len(name) + 20)
+    starts, ends, perms = broken_shard(name, rng)
+    view = tpc.make_shard_view(starts, ends, perms, device="cpu")
+    pages, ext = broken_pages(rng, starts, ends)
+    page = torch.from_numpy(pages)
+    for need in (1, 2, 3):
+        sa, si = search_verdict(ext, view, hwpid=3, need=need)
+        ra, _ = ref.permcheck(torch.from_numpy(ext), view.starts, view.ends,
+                              view.permbits, hwpid=3, need=need)
+        assert not bool((sa & ~ra).any())
+        k = si.clamp(min=0).long()
+        named = (view.starts[k] <= page) & (page < view.ends[k])
+        assert bool((named | (si < 0)).all())
+        if name == "four":
+            assert not bool(sa[page == 50].any())
 
 
 def test_search_on_stacked_rows_padded_with_sentinel_tiles():

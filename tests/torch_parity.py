@@ -6,6 +6,7 @@ import pytest
 import torch
 
 from repro_torch.convert import u32_to_numpy
+from repro_torch.kernels import permcheck as tpc
 
 
 @pytest.fixture
@@ -140,3 +141,43 @@ def assert_search_precondition(starts, ends, tile_min):
     assert (s[:n] < e[:n]).all()
     assert (e[:max(n - 1, 0)] <= s[1:n]).all()
     np.testing.assert_array_equal(tm, s[::1024])
+
+
+# Shards that break the search's precondition: "four" is unsorted and
+# overlapping, [(60, 110), (70, 80), (90, 95), (30, 40)], so page 50 lies in
+# no entry; the others are edge shards shuffled, with every third end
+# stretched over the entries after it.
+BROKEN_SHARDS = ["four", "adjacent_33", "tile_1025", "tiles_9000"]
+
+
+def broken_shard(name, rng):
+    """(starts, ends, perms) of the named broken shard."""
+    if name == "four":
+        return (np.array([60, 70, 90, 30], np.int32),
+                np.array([110, 80, 95, 40], np.int32),
+                np.full(4, 3, np.uint32))
+    starts, ends, perms = edge_shard(name, rng)
+    ends = ends.copy()
+    ends[::3] += 20
+    order = rng.permutation(starts.size)
+    return starts[order], ends[order], perms[order]
+
+
+def broken_pages(rng, starts, ends):
+    """Pages 0-129 and the edges of the entries, tagged for HWPID 3."""
+    pages = np.concatenate([np.arange(130, dtype=np.int32), edge_pages(
+        rng, np.sort(starts), np.sort(ends))])
+    return pages, ((3 << 24) | pages).astype(np.int32)
+
+
+def search_verdict(ext_addrs, view, *, hwpid, need):
+    """The permission check as the search kernels compute it, on the CPU:
+    `permcheck.lane_search_plain`, then one read of the found entry's end
+    and permission bits.  Returns (allowed bool[B], idx i32[B])."""
+    ext = torch.as_tensor(np.asarray(ext_addrs, np.int32)).reshape(-1)
+    page = ext & 0xFFFFFF
+    k = tpc.lane_search_plain(page, view.starts, view.tile_min)
+    kc = k.clamp(min=0).long()
+    covered = (k >= 0) & (page < view.ends[kc])
+    ok = covered & ((view.permbits[kc] & need) == need)
+    return ((ext >> 24) == hwpid) & ok, torch.where(covered, k, -1)
