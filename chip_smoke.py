@@ -9,8 +9,9 @@ CUDA toolkit.  Phases, each reported on its own line:
 
   1. device — the card as torch and ``nvidia-smi`` name it, power limit;
   2. build — the five kernels compiled from ``src/repro_torch/kernels/
-     csrc`` (nvcc, sm_90a), with ptxas' register and spill lines; the two
-     search kernels (permcheck, fabric_egress) must not spill;
+     csrc`` (nvcc, sm_90a), with ptxas' register and spill lines; the
+     three search kernels (permcheck, checked_memcrypt, fabric_egress)
+     must not spill;
   3. kernel phases — each kernel held against its plain PyTorch version on
      the card (the egress kernels bit-exact; flash attention within the
      reference's 2e-5 (f32) / 3e-2 (bf16) on the reference's sweeps and at
@@ -402,8 +403,7 @@ def kernel_phases(dev, results: dict) -> None:
         phases.append(dict(trace=kind, call_ms=ms, plain_ms=plain_ms,
                            kernel_only_ms=kernel_only_ms(
                                call, "checked_memcrypt_kernel"),
-                           bound_ms=b_ms, bound_by=b_by, faults=faults,
-                           selected=pc.selected_mode(ext, view, block=8192)))
+                           bound_ms=b_ms, bound_by=b_by, faults=faults))
         log(f"phase checked_memcrypt {kind:7s}: bit-exact; faults by code "
             f"{faults}; kernel {phases[-1]['kernel_only_ms']} ms, call "
             f"{ms:.4f} ms (bound {b_ms:.4f} ms {b_by})")
@@ -683,9 +683,10 @@ def check_flash_build(build_log: str) -> None:
         raise AssertionError(f"the f32 prefill kernel spills: {bad}")
 
 
-# the two search kernels (egress.cuh lane_search), each in its 16-byte
+# the three search kernels (egress.cuh lane_search), each in its 16-byte
 # (WIDE) and its scalar instantiation
-SEARCH_KERNELS = ("permcheck_kernel", "fabric_egress_kernel")
+SEARCH_KERNELS = ("permcheck_kernel", "checked_memcrypt_kernel",
+                  "fabric_egress_kernel")
 
 
 def check_search_build(build_log: str) -> None:
@@ -1097,6 +1098,9 @@ def main() -> int:
     # main path 1: the checked egress path
     reset_launches()
     quickstart(dev)
+    if launches["checked_memcrypt"] != 2:
+        raise AssertionError(f"quickstart launched checked_memcrypt "
+                             f"{launches['checked_memcrypt']} times, not 2")
     main = fabric_main_path(dev)
     counts = dict(launches)
     log(f"main egress path launches: {counts}")

@@ -33,8 +33,8 @@ SIGNATURES = {
     "memcrypt_launch": [_P, _P, _I64, _U32, _U32, _U32, _P],
     "permcheck_launch": [_P, _I64, _P, _P, _P, _I64, _P, _I32, _I32, _I32,
                          _P, _P, _P],
-    "checked_memcrypt_launch": [_P, _P, _I64, _P, _P, _P, _I32, _P, _P, _P,
-                                _I32, _U32, _U32, _U32, _P, _P, _P],
+    "checked_memcrypt_launch": [_P, _P, _I64, _P, _P, _P, _I64, _P, _I32,
+                                _I32, _I32, _U32, _U32, _U32, _P, _P, _P],
     "fabric_egress_launch": [_P, _P, _I64, _I64, _I64, _P, _P, _P, _P,
                              _I64, _P, _I32, _I32, _U32, _U32, _P, _P, _P],
     # q, k, v, o, dtype, (b, h, hkv, sq, sk, dh), 12 strides, scale,

@@ -1,10 +1,10 @@
 // Device functions shared by the four egress kernels (memcrypt, permcheck,
 // checked_memcrypt, fabric_egress).  Keeping the keystream and the lookup in
 // one header makes the kernels bit-identical to each other by construction:
-// kernels 1, 3 and 4 run the same 12-round ARX keystream; kernels 2 and 4
+// kernels 1, 3 and 4 run the same 12-round ARX keystream; kernels 2, 3 and 4
 // the same per-lane sorted search (`shard_prologue` + `lane_search`) and
-// vector loads and stores, kernel 3 the block-wide slab scan
-// (`block_lookup`).
+// vector loads and stores; kernels 3 and 4 the same fused egress block
+// (`egress_block`).
 //
 // u32 words cross the C interface as int32 (torch has no uint32 arithmetic
 // on the CPU); every kernel reinterprets them as uint32_t and hands the same
@@ -16,9 +16,9 @@
 
 namespace egress {
 
-constexpr int THREADS = 256;        // threads per block, kernels 1 and 3
-constexpr int ENTRY_TILE = 1024;    // table entries per tile (and per slab)
-constexpr int MAX_TILES = 64;       // MAX_ENTRIES / ENTRY_TILE: one u64 mask
+constexpr int THREADS = 256;        // threads per block, kernel 1
+constexpr int ENTRY_TILE = 1024;    // table entries per tile
+constexpr int MAX_TILES = 64;       // MAX_ENTRIES / ENTRY_TILE
 constexpr int HWPID_SHIFT = 24;
 constexpr int32_t PAGE_MASK = (1 << HWPID_SHIFT) - 1;
 constexpr int32_t EMPTY_START = 0x7FFFFFFF;  // start of a dead entry / tile
@@ -60,11 +60,11 @@ __device__ __forceinline__ uint32_t keystream_x0(uint32_t k0, uint32_t k1,
 struct Verdict {
   bool any_ok;    // some entry covering the page grants `need`
   bool covered;   // some entry covers the page
-  int32_t idx;    // the covering entry (the search only), else -1
+  int32_t idx;    // the covering entry, else -1
 };
 
 // ---------------------------------------------------------------------------
-// The per-lane sorted search (kernels 2 and 4).
+// The per-lane sorted search (kernels 2, 3 and 4).
 //
 // PRECONDITION on every shard it searches — what HostTable commits and every
 // view of it (make_shard_view, HostRuntime.shard_view, stack_views) keeps:
@@ -242,81 +242,8 @@ __device__ __forceinline__ void store_vec(bool* __restrict__ p, int64_t i0,
     if (i0 + j < n) p[i0 + j] = v[j];
 }
 
-// ---------------------------------------------------------------------------
-// The block-wide slab scan (kernel 3).
-// ---------------------------------------------------------------------------
-
-// One page per thread, looked up against one table shard.  The shard streams
-// through shared memory ENTRY_TILE entries at a time (12 KB of starts, sizes,
-// sizes_ok); each slab is read from device memory once per block and then
-// broadcast to every lane, so the block pays N*12 bytes per 256 lanes.
-//
-// The range test is the diff form `(page - start) as u32 < size`: a page
-// below the start wraps to a huge unsigned value, a denied entry carries a
-// zero `sizes_ok` window, and the INT32_MAX sentinel entries have size 0 and
-// never match.
-//
-// `hier` (uniform across the block) first ORs the candidate tiles of every
-// lane's page from the [tile_min, tile_max) summary into one u64 mask and
-// then walks only the set tiles; flat walks every tile.  Any entry that
-// covers a page lies in a tile whose window holds the page, so both walks
-// give the same answer.
-//
-// Every thread of the block must call this (it synchronises); `active` marks
-// the lanes that hold a page.
-__device__ __forceinline__ Verdict block_lookup(
-    int32_t page, bool active, const int32_t* __restrict__ starts,
-    const int32_t* __restrict__ sizes, const int32_t* __restrict__ sizes_ok,
-    int n_tiles, const int32_t* __restrict__ tile_min,
-    const int32_t* __restrict__ tile_max, bool hier) {
-  __shared__ int32_t s_start[ENTRY_TILE];
-  __shared__ uint32_t s_size[ENTRY_TILE];
-  __shared__ uint32_t s_ok[ENTRY_TILE];
-  __shared__ unsigned long long s_need;
-
-  unsigned long long need;
-  if (hier) {
-    if (threadIdx.x == 0) s_need = 0ull;
-    __syncthreads();
-    if (active) {
-      unsigned long long mine = 0ull;
-      for (int t = 0; t < n_tiles; ++t)
-        if (page >= tile_min[t] && page < tile_max[t]) mine |= 1ull << t;
-      if (mine) atomicOr(&s_need, mine);
-    }
-    __syncthreads();
-    need = s_need;
-  } else {
-    need = n_tiles >= MAX_TILES ? ~0ull : ((1ull << n_tiles) - 1ull);
-  }
-
-  Verdict v{false, false, -1};
-  const uint32_t upage = static_cast<uint32_t>(page);
-  while (need) {
-    const int t = __ffsll(static_cast<long long>(need)) - 1;
-    need &= need - 1ull;
-    __syncthreads();  // every lane is done with the previous slab
-    for (int k = threadIdx.x; k < ENTRY_TILE; k += blockDim.x) {
-      const int64_t g = static_cast<int64_t>(t) * ENTRY_TILE + k;
-      s_start[k] = starts[g];
-      s_size[k] = static_cast<uint32_t>(sizes[g]);
-      s_ok[k] = static_cast<uint32_t>(sizes_ok[g]);
-    }
-    __syncthreads();
-    if (active) {
-#pragma unroll 8
-      for (int k = 0; k < ENTRY_TILE; ++k) {
-        const uint32_t diff = upage - static_cast<uint32_t>(s_start[k]);
-        v.any_ok |= diff < s_ok[k];
-        v.covered |= diff < s_size[k];
-      }
-    }
-  }
-  return v;
-}
-
-// The fused egress epilogue of kernels 3 and 4: the verdict's fault code in
-// the reference's priority (NO_ABITS for tag <= 0 — the -1 padding lane
+// The fused egress epilogue, per word: the verdict's fault code in the
+// reference's priority (NO_ABITS for tag <= 0 — the -1 padding lane
 // included — then NOT_LOCAL, NO_ENTRY, PERM) and the decrypted word, or 0
 // on a denied lane.
 __device__ __forceinline__ void egress_word(int32_t word, int32_t ext,
@@ -337,6 +264,45 @@ __device__ __forceinline__ void egress_word(int32_t word, int32_t ext,
   if (allowed) w = static_cast<uint32_t>(word) ^ keystream_x0(k0, k1, pos);
   *out = static_cast<int32_t>(w);
   *fault = f;
+}
+
+// The fused egress of kernels 3 and 4 for one block of one row: VEC words
+// per thread, each checked by the search against the row's shard and
+// decrypted at keystream position pos0 + lane (mod 2^32), or zeroed with
+// its fault code.  `data`, `ext`, `out` and `fault` point at the row's
+// first word, `starts`, `ends`, `permbits` and `tile_min` at its shard.
+// Every thread of the block must call it (the prologue synchronises).
+template <bool WIDE>
+__device__ __forceinline__ void egress_block(
+    const int32_t* __restrict__ data, const int32_t* __restrict__ ext,
+    int64_t b, int32_t hwpid, const int32_t* __restrict__ starts,
+    const int32_t* __restrict__ ends, const int32_t* __restrict__ permbits,
+    const int32_t* __restrict__ tile_min, int n_tiles, int32_t need,
+    uint32_t k0, uint32_t k1, uint32_t pos0, int32_t* __restrict__ out,
+    int32_t* __restrict__ fault) {
+  __shared__ int32_t s_tmin[MAX_TILES];
+  __shared__ int32_t s_tile[ENTRY_TILE];
+  // the words first: their loads overlap the shard prologue's
+  const int64_t lane0 =
+      (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) * VEC;
+  int32_t w[VEC], e[VEC], page[VEC];
+  load_vec<WIDE>(data, lane0, b, 0, w);
+  load_vec<WIDE>(ext, lane0, b, -1, e);
+  const Shard sh = shard_prologue(starts, tile_min, n_tiles, s_tmin, s_tile);
+  if (lane0 >= b) return;
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) page[j] = e[j] & PAGE_MASK;
+  int k[VEC];
+  lane_search<VEC>(page, sh, k);
+  int32_t o[VEC], f[VEC];
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) {
+    const Verdict v = entry_verdict(page[j], k[j], ends, permbits, need);
+    egress_word(w[j], e[j], hwpid, v, k0, k1,
+                pos0 + static_cast<uint32_t>(lane0 + j), &o[j], &f[j]);
+  }
+  store_vec<WIDE>(out, lane0, b, o);
+  store_vec<WIDE>(fault, lane0, b, f);
 }
 
 }  // namespace egress

@@ -7,8 +7,9 @@
 // HWPID) and 4 per table word the search reads, against ~52 integer
 // operations per granted word for the keystream and ~3 per search probe.
 // Design: a 2-D grid (word block, row); each block finds its row's shard by
-// blockIdx.y and each lane binary-searches it (`egress::lane_search`), so a
-// word costs O(log N) probes, not a scan of the row's slab.  At the
+// blockIdx.y and runs the fused egress block (`egress::egress_block`, which
+// kernel 3 runs on one row): each lane binary-searches the shard
+// (`egress::lane_search`), so a word costs O(log N) probes.  At the
 // 255-host deployment a row's live entries fit in one 1024-entry tile: the
 // block stages that tile in shared memory and searches only its live
 // entries.  Each thread takes VEC consecutive words with 16-byte loads of
@@ -32,37 +33,13 @@ fabric_egress_kernel(const int32_t* __restrict__ data,
                      const int32_t* __restrict__ tile_min, int n_tiles,
                      int32_t need, uint32_t k0, uint32_t k1,
                      int32_t* __restrict__ out, int32_t* __restrict__ fault) {
-  constexpr int V = egress::VEC;
-  __shared__ int32_t s_tmin[egress::MAX_TILES];
-  __shared__ int32_t s_tile[egress::ENTRY_TILE];
   const int64_t row = blockIdx.y;
-  // the words first: their loads overlap the shard prologue's
-  const int64_t lane0 =
-      (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) * V;
-  const int64_t ro = row * b;
-  int32_t w[V], e[V], page[V];
-  egress::load_vec<WIDE>(data + ro, lane0, b, 0, w);
-  egress::load_vec<WIDE>(ext + ro, lane0, b, -1, e);
-  const int32_t hwpid = hwpids[row];
-  const int64_t eo = row * n_entries;
-  const egress::Shard sh = egress::shard_prologue(
-      starts + eo, tile_min + row * n_tiles, n_tiles, s_tmin, s_tile);
-  if (lane0 >= b) return;
-#pragma unroll
-  for (int j = 0; j < V; ++j) page[j] = e[j] & egress::PAGE_MASK;
-  int k[V];
-  egress::lane_search<V>(page, sh, k);
-  int32_t o[V], f[V];
-#pragma unroll
-  for (int j = 0; j < V; ++j) {
-    const egress::Verdict v = egress::entry_verdict(
-        page[j], k[j], ends + eo, permbits + eo, need);
-    egress::egress_word(w[j], e[j], hwpid, v, k0, k1,
-                        static_cast<uint32_t>(row * bp + lane0 + j), &o[j],
-                        &f[j]);
-  }
-  egress::store_vec<WIDE>(out + ro, lane0, b, o);
-  egress::store_vec<WIDE>(fault + ro, lane0, b, f);
+  const int64_t ro = row * b, eo = row * n_entries;
+  egress::egress_block<WIDE>(data + ro, ext + ro, b, hwpids[row], starts + eo,
+                             ends + eo, permbits + eo,
+                             tile_min + row * n_tiles, n_tiles, need, k0, k1,
+                             static_cast<uint32_t>(row * bp), out + ro,
+                             fault + ro);
 }
 
 }  // namespace

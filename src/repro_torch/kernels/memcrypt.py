@@ -10,12 +10,13 @@ Two kernels:
 
   ``memcrypt``              — plain keystream XOR over a u32 buffer
     (``csrc/memcrypt.cu``).
-  ``checked_memcrypt_view`` — the fused egress path: tag check + adaptive
-    cover lookup (the reference's flat/hier selector,
-    ``permcheck.hier_profitable``) + keystream XOR in one launch
-    (``csrc/checked_memcrypt.cu``).  It reads each word once, zeroes
-    denied lanes and emits a fault code per word — the checker and the
-    encryption engine back to back at the egress point.
+  ``checked_memcrypt_view`` — the fused egress path: tag check + cover
+    lookup + keystream XOR in one launch (``csrc/checked_memcrypt.cu``).
+    Each word's lane searches the sorted shard as the permcheck kernel
+    does (the precondition `permcheck.lane_search_plain` states), so the
+    reference's flat/hier selector has nothing to choose.  It reads each
+    word once, zeroes denied lanes and emits a fault code per word — the
+    checker and the encryption engine back to back at the egress point.
 
 u32 words travel as int32 tensors with the same bit patterns.
 """
@@ -24,13 +25,11 @@ from __future__ import annotations
 import torch
 
 from ..core.table import as_int32
-from . import bucket_pad, check_cuda_operands, launches, ref
+from . import check_cuda_operands, launches, ref
 from ._build import launch
-from .permcheck import (ShardView, grant_sizes, hier_profitable,
-                        make_shard_view, pad_batch)
+from .permcheck import ShardView, check_search_layout, make_shard_view
 
-BLOCK = 1024        # words per selector step
-SUPER_BLOCKS = 8    # BLOCK-tiles per fused-egress selector step
+BLOCK = 1024        # words per reference kernel block (a fabric row pads to it)
 
 _U32 = 0xFFFFFFFF
 
@@ -74,9 +73,8 @@ def checked_memcrypt_view(data, ext_addrs, view: ShardView, *, hwpid: int,
     ``base_word + i`` and released only if the lookup grants ``need`` to
     ``hwpid``.  Returns ``(out i32[B], fault i32[B])`` with ``out`` zeroed
     and a ``repro_torch.core.checker.FAULT_*`` code on every denied lane.
-    The flat/hier walk is picked per call by the reference's selector
-    (``permcheck.hier_profitable``), scored in SUPER_BLOCKS x BLOCK-word
-    steps.
+    The CUDA kernel searches the view's sorted shard (the search kernels'
+    precondition; on a shard that breaks it, it fails closed).
     """
     dev = view.starts.device
     d = as_int32(data, dev).reshape(-1).contiguous()
@@ -90,22 +88,17 @@ def checked_memcrypt_view(data, ext_addrs, view: ShardView, *, hwpid: int,
             d, ext, view, hwpid=hwpid, need=need, key0=key0, key1=key1,
             base_word=base_word)
     ext = ext.contiguous()
-    bp = bucket_pad(b, BLOCK)
-    sb = min(SUPER_BLOCKS, bp // BLOCK) * BLOCK   # both are powers of two
-    sel = hier_profitable(pad_batch(ext, sb), view.tile_min, view.tile_max,
-                          block=sb).to(torch.int32).reshape(1)
-    sizes, sizes_ok = grant_sizes(view.starts, view.ends, view.permbits,
-                                  need)
-    check_cuda_operands(data=d, ext=ext, starts=view.starts, sizes=sizes,
-                        sizes_ok=sizes_ok, tile_min=view.tile_min,
-                        tile_max=view.tile_max, sel=sel)
+    check_cuda_operands(data=d, ext=ext, starts=view.starts, ends=view.ends,
+                        permbits=view.permbits, tile_min=view.tile_min)
+    check_search_layout(view.starts, view.ends, view.permbits, view.tile_min)
     out = torch.empty_like(d)
     fault = torch.empty_like(d)
     launch("checked_memcrypt_launch", d.data_ptr(), ext.data_ptr(), b,
-           view.starts.data_ptr(), sizes.data_ptr(), sizes_ok.data_ptr(),
-           view.n_tiles, view.tile_min.data_ptr(), view.tile_max.data_ptr(),
-           sel.data_ptr(), int(hwpid), int(key0) & _U32, int(key1) & _U32,
-           int(base_word) & _U32, out.data_ptr(), fault.data_ptr(),
+           view.starts.data_ptr(), view.ends.data_ptr(),
+           view.permbits.data_ptr(), view.starts.shape[0],
+           view.tile_min.data_ptr(), view.n_tiles, int(need), int(hwpid),
+           int(key0) & _U32, int(key1) & _U32, int(base_word) & _U32,
+           out.data_ptr(), fault.data_ptr(),
            torch.cuda.current_stream(dev).cuda_stream)
     launches["checked_memcrypt"] += 1
     return out, fault

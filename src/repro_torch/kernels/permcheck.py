@@ -15,10 +15,11 @@ by start, non-overlapping, followed by never-matching INT32_MAX sentinels.
 The reference's three modes — "flat" (scan every tile), "hier" (scan the
 tiles the summary flags) and "adaptive" (`hier_profitable` picks one per
 batch) — change only its cost, never the output.  The wrapper still checks
-``mode``, but on CUDA every mode runs the one search.  `hier_profitable`,
-`selected_mode` and `grant_sizes` stay as the reference's API, held against
-it by the parity tests; the fused kernel (``memcrypt.checked_memcrypt_view``)
-still runs on them.
+``mode``, but on CUDA every mode runs the one search.  The fused egress
+kernels (``memcrypt.checked_memcrypt_view``, ``fabric_egress``) run the same
+search.  `hier_profitable`, `selected_mode`, `grant_sizes` and `pad_batch`
+stay as the reference's API, held against it by the parity tests; no CUDA
+path runs them.
 
 Layout: addresses i32[B]; entries i32[N] padded to a power-of-two multiple
 of ENTRY_TILE with never-matching INT32_MAX sentinels (N <= MAX_ENTRIES).
@@ -135,7 +136,7 @@ class ShardViewCache:
 def grant_sizes(starts, ends, permbits, need: int):
     """Per-entry diff-form operands: ``sizes[k] = ends[k] - starts[k]`` and
     ``sizes_ok[k]`` = the same span if entry k grants ``need``, else 0.
-    The kernels then test one unsigned compare per entry —
+    The reference's kernels then test one unsigned compare per entry —
     ``(page - start) as u32 < size`` — because a page below the start wraps
     to a huge unsigned value and a denied entry has a zero window.  Works
     row-wise on stacked [R, N] operands too."""

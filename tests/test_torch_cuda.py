@@ -22,7 +22,7 @@ from repro_torch.kernels import permcheck as tpc
 from torch_parity import (BROKEN_SHARDS, EDGE_SHARDS,  # noqa: F401
                           assert_equal, broken_pages, broken_shard, cuda,
                           edge_ext, edge_pages, edge_shard, mk_ext, mk_table,
-                          search_verdict, words)
+                          search_egress, search_verdict, words)
 
 SDM = 1 << 22
 
@@ -82,6 +82,90 @@ def test_checked_memcrypt_kernel(cuda, n_entries):  # noqa: F811
             po, pf = tmc.checked_memcrypt_view_plain(d, ext, view, **args)
             assert_equal(ko, po)
             assert_equal(kf, pf)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(EDGE_SHARDS))
+def test_checked_memcrypt_kernel_search_edges(cuda, name):  # noqa: F811
+    """The fused kernel's search at its edges (EDGE_SHARDS), need 1 and 2,
+    with a keystream counter that wraps past 2^32 inside the batch;
+    through the 16-byte path, a ragged tail and a batch that starts 4
+    bytes off alignment."""
+    rng = np.random.default_rng(len(name) + 40)
+    starts, ends, perms = edge_shard(name, rng)
+    view = tpc.make_shard_view(starts, ends, perms, device=cuda)
+    ext = torch.from_numpy(edge_ext(rng, edge_pages(rng, starts, ends)))
+    ext = ext.to(cuda)
+    d = convert.u32_from_numpy(words(rng, ext.numel()), cuda)
+    for sl in (slice(None), slice(None, -1), slice(1, None)):
+        for need in (1, 2):
+            args = dict(hwpid=3, need=need, key0=1, key1=2,
+                        base_word=2**32 - 100)
+            ko, kf = _launched("checked_memcrypt",
+                               lambda: tmc.checked_memcrypt_view(
+                                   d[sl], ext[sl], view, **args))
+            po, pf = tmc.checked_memcrypt_view_plain(d[sl], ext[sl], view,
+                                                     **args)
+            assert_equal(ko, po)
+            assert_equal(kf, pf)
+
+
+@pytest.mark.cuda
+def test_checked_memcrypt_kernel_odd_misaligned_and_empty(cuda):  # noqa: F811
+    """4097 and 4096 words on a 9-tile shard, the counter wrapping inside
+    the batch: an odd length, both operands 4 bytes off, only the data
+    off (the 16-byte path needs every operand aligned), both aligned; then
+    an empty batch."""
+    rng = np.random.default_rng(4097)
+    starts, ends, perms = edge_shard("tiles_9000", rng)
+    view = tpc.make_shard_view(starts, ends, perms, device=cuda)
+    ext = edge_ext(rng, rng.choice(edge_pages(rng, starts, ends), 4098))
+    ext = torch.from_numpy(ext).to(cuda)
+    d = convert.u32_from_numpy(words(rng, 4098), cuda)
+    args = dict(hwpid=3, need=2, key0=5, key1=6, base_word=2**32 - 100)
+    for x, e in ((d[:4097], ext[:4097]), (d[1:], ext[1:]),
+                 (d[1:4097], ext[:4096]), (d[:4096], ext[:4096])):
+        ko, kf = _launched("checked_memcrypt",
+                           lambda: tmc.checked_memcrypt_view(x, e, view,
+                                                             **args))
+        po, pf = tmc.checked_memcrypt_view_plain(x, e, view, **args)
+        assert ko.shape == kf.shape == (x.numel(),)
+        assert_equal(ko, po)
+        assert_equal(kf, pf)
+    assert set(pf.unique().tolist()) == {0, 1, 2, 3, 4}
+    ko, kf = tmc.checked_memcrypt_view(d[:0], ext[:0], view, **args)
+    assert ko.shape == kf.shape == (0,)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", BROKEN_SHARDS)
+def test_checked_memcrypt_kernel_fails_closed(cuda, name):  # noqa: F811
+    """On an unsorted, overlapping shard the fused kernel gives what the
+    search gives on the CPU (`search_egress`): it releases no word and
+    gives no FAULT_NONE where the plain version withholds the word, and
+    page 50 of "four" (in no entry) is withheld."""
+    rng = np.random.default_rng(len(name) + 20)
+    starts, ends, perms = broken_shard(name, rng)
+    view = tpc.make_shard_view(starts, ends, perms, device=cuda)
+    host = tpc.make_shard_view(starts, ends, perms, device="cpu")
+    pages, ext = broken_pages(rng, starts, ends)
+    x = torch.from_numpy(ext).to(cuda)
+    d = convert.u32_from_numpy(words(rng, ext.size), cuda)
+    for need in (1, 2, 3):
+        args = dict(hwpid=3, need=need, key0=7, key1=8, base_word=5)
+        ko, kf = _launched("checked_memcrypt",
+                           lambda: tmc.checked_memcrypt_view(d, x, view,
+                                                             **args))
+        so, sf = search_egress(d.cpu(), ext, host, **args)
+        assert_equal(ko, so)
+        assert_equal(kf, sf)
+        po, pf = tmc.checked_memcrypt_view_plain(d, x, view, **args)
+        released = kf == 0
+        assert not bool((released & (pf != 0)).any())
+        assert_equal(ko[released], po[released])
+        if name == "four":
+            assert not bool(released[torch.from_numpy(pages == 50)
+                                     .to(cuda)].any())
 
 
 @pytest.mark.cuda

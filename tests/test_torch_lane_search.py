@@ -25,7 +25,7 @@ from repro_torch.kernels import permcheck as tpc
 from torch_parity import (BROKEN_SHARDS, EDGE_SHARDS, assert_equal,
                           assert_search_precondition, assert_u32_equal,
                           broken_pages, broken_shard, edge_ext, edge_pages,
-                          edge_shard, search_verdict, words)
+                          edge_shard, search_egress, search_verdict, words)
 
 
 def _row(view, r):
@@ -130,22 +130,14 @@ def test_search_on_stacked_rows_padded_with_sentinel_tiles():
 
 def tpc_fabric_from_search(data, ext, view, *, need, key0, key1):
     """The fabric egress as the kernel computes it, on the CPU: per row
-    `search_verdict`, the fault priority and the keystream at row * 2048 +
-    lane (B = 2048 is its own bucket)."""
+    `search_egress` at base word row * 2048 (B = 2048 is its own
+    bucket)."""
     d = convert.u32_from_numpy(data, "cpu")
-    outs, faults = [], []
-    for r, h in enumerate(view.hwpids.tolist()):
-        row = _row(view, r)
-        e = torch.from_numpy(ext[r])
-        allowed, idx = search_verdict(e, row, hwpid=h, need=need)
-        dec = ref.memcrypt(d[r], key0, key1, r * ext.shape[1])
-        tag = e >> 24
-        fault = torch.where(allowed, 0, torch.where(
-            tag <= 0, 1, torch.where(tag != h, 2, torch.where(idx < 0, 3,
-                                                              4))))
-        outs.append(torch.where(allowed, dec, 0))
-        faults.append(fault.to(torch.int32))
-    return torch.stack(outs), torch.stack(faults)
+    rows = [search_egress(d[r], ext[r], _row(view, r), hwpid=h, need=need,
+                          key0=key0, key1=key1, base_word=r * ext.shape[1])
+            for r, h in enumerate(view.hwpids.tolist())]
+    return (torch.stack([o for o, _ in rows]),
+            torch.stack([f for _, f in rows]))
 
 
 def test_views_after_churn_meet_the_search_precondition():

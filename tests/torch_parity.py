@@ -7,6 +7,7 @@ import torch
 
 from repro_torch.convert import u32_to_numpy
 from repro_torch.kernels import permcheck as tpc
+from repro_torch.kernels import ref
 
 
 @pytest.fixture
@@ -181,3 +182,21 @@ def search_verdict(ext_addrs, view, *, hwpid, need):
     covered = (k >= 0) & (page < view.ends[kc])
     ok = covered & ((view.permbits[kc] & need) == need)
     return ((ext >> 24) == hwpid) & ok, torch.where(covered, k, -1)
+
+
+def search_egress(data, ext_addrs, view, *, hwpid, need, key0, key1,
+                  base_word=0):
+    """The fused egress as the checked_memcrypt and fabric_egress kernels
+    compute it (``egress::egress_block``), on the CPU: `search_verdict`,
+    the fault code in the reference's order (NO_ABITS for tag <= 0, then
+    NOT_LOCAL, NO_ENTRY, PERM) and, on a granted word only, the word XORed
+    with the keystream at ``base_word + lane`` (mod 2^32).  ``data`` i32[B]
+    (u32 bits).  Returns (out i32[B], fault i32[B])."""
+    ext = torch.as_tensor(np.asarray(ext_addrs, np.int32)).reshape(-1)
+    allowed, idx = search_verdict(ext, view, hwpid=hwpid, need=need)
+    dec = ref.memcrypt(data, key0, key1, base_word)
+    tag = ext >> 24
+    fault = torch.where(allowed, 0, torch.where(
+        tag <= 0, 1, torch.where(tag != hwpid, 2,
+                                 torch.where(idx < 0, 3, 4))))
+    return torch.where(allowed, dec, 0), fault.to(torch.int32)
