@@ -36,7 +36,24 @@ CUDA toolkit.  Phases, each reported on its own line:
      and every fabric launch's words and fault codes, held against the
      plain version; then one decode step's launches, wall time and device
      busy share, and the first group's logits against a plain-attention
-     run.
+     run;
+  6. main path 3, the chaos storm — the reference's fault matrix at 255
+     hosts (112 tenants, 5 seeds x 14 rounds): dropped, duplicated,
+     reordered and delayed BISnp copies, one FM crash epoch, one host that
+     falls silent, is listed by the heartbeat monitor, is fenced and
+     rejoins cold.  Every round every revoked span is checked through
+     `HostRuntime.check` on the card and, with every live tenant's row,
+     through one `step_egress` (the fabric kernel): no route may release
+     a word.  Then restart + quiesce barriers until every host is back in
+     sync; every fabric launch is held against the plain version;
+  7. main path 4, the clocked timing path — 127 tenants on 255 hosts on a
+     `ClockedFabric`, GAPBS traces of an RMAT scale-13 graph as 127 x
+     512-word fabric steps between `begin_trace` and `end_trace`, each
+     launch held against the plain version; the same run with
+     ``device="cpu"`` must give the same trace, replay report and words;
+     then the replay's propagation percentiles and the PermCache timing
+     penalty (simulated cycles at the paper's Table 2 timings, not card
+     times) and the steady step's kernel time.
   Each main path's kernel launch counts are zeroed just before it and read
   just after: each of its kernels must have launched.
 
@@ -65,7 +82,8 @@ sys.path.insert(0, str(ROOT / "src"))
 from repro_torch.configs import ARCHS  # noqa: E402
 from repro_torch.convert import u32_from_numpy  # noqa: E402
 from repro_torch.core import (FAULT_NO_ENTRY, FAULT_PERM,  # noqa: E402
-                              PERM_RW, RING_USER, FabricManager, Proposal,
+                              PERM_RW, RING_USER, FabricManager, FaultPlan,
+                              FaultSpec, FMUnavailable, Proposal,
                               ShardedFabric, pack_ext_addr, tenant_permbits)
 from repro_torch.core.fabric import stack_views  # noqa: E402
 from repro_torch.kernels import (_build, bucket_pad, launches,  # noqa: E402
@@ -75,7 +93,10 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import memcrypt as mc  # noqa: E402
 from repro_torch.kernels import permcheck as pc  # noqa: E402
 from repro_torch.launch.serve import ServeEngine, run_demo  # noqa: E402
+from repro_torch.memsim.clock import ClockedFabric, TimingConfig  # noqa: E402
+from repro_torch.memsim.replay import replay, timing_penalty  # noqa: E402
 from repro_torch.models import registry  # noqa: E402
+from repro_torch.workloads import gapbs, graphs  # noqa: E402
 
 SEED = 0
 # H100 SXM HBM bandwidth (NVIDIA H100 datasheet).
@@ -880,9 +901,10 @@ class AttendCheck:
 
 
 class FabricCheck:
-    """Stands in for ``fabric_egress`` during the serving run: launches the
-    kernel and keeps a copy of each launch's operands and results, which
-    `check` holds against the plain version once the timed run is over."""
+    """Stands in for ``fabric_egress`` during a timed run (serving, the
+    chaos storm, the timing path): launches the kernel and keeps a copy of
+    each launch's operands and results, which `check` holds against the
+    plain version once the run is over."""
 
     def __init__(self):
         self.kernel = fe.fabric_egress
@@ -1060,6 +1082,390 @@ def serve_main_path(dev) -> dict:
                     "readmitted", "replacement")})
 
 
+# -- the fault-tolerance and clocked-timing slice ---------------------------
+
+# Phase A: the reference's chaos matrix (tests/test_faults.py,
+# benchmarks/faults_bench.py) at the paper's 255 hosts.  112 tenants leave
+# 15 of the 127 HWPIDs free, one more than the storm's 14 rounds can admit,
+# so no admit finds the pool empty.
+CHAOS_SEEDS = (1, 2, 3, 4, 5)
+CHAOS_ROUNDS = 14
+CHAOS_TENANTS = 112
+CHAOS_SPAN = 16
+CHAOS_WORDS = 64            # words per row of each round's fabric step
+CHAOS_SPEC = dict(drop_p=0.15, dup_p=0.10, reorder_p=0.10, delay_p=0.10,
+                  max_delay=3)
+MONITOR_TIMEOUT = 2         # rounds of silence before a host is listed dead
+FAIL_ROUND, REJOIN_ROUND = 5, 10
+
+
+def _span_ext(pid: int, start: int, n: int) -> np.ndarray:
+    return np.asarray(pack_ext_addr(np.full(n, pid, np.int32),
+                                    (start + np.arange(n)).astype(np.int32)))
+
+
+def chaos_seed(dev, seed: int) -> dict:
+    """One seeded storm: churn under dropped, duplicated, reordered and
+    delayed BISnp copies, one FM crash epoch, and one host that falls
+    silent at round 5, is listed by the heartbeat monitor, fenced with
+    `crash_host` and rejoins cold at round 10.  Every round each revoked
+    (host, HWPID, span) is checked through `HostRuntime.check` and, with
+    every live tenant's row, through one `step_egress`; neither may
+    release a word.  Then restart + quiesce barriers until every host is
+    back in sync and every revoked span denies."""
+    rng = np.random.default_rng(seed)
+    data_rng = np.random.default_rng(seed + 1000)
+    t0 = time.perf_counter()
+    fab = ShardedFabric(SDM_PAGES, table_capacity=8192, n_shards=N_HOSTS,
+                        device=dev)
+    rts = [fab.enroll(h) for h in range(N_HOSTS)]
+    live = {h: [] for h in range(N_HOSTS)}
+    for p in range(CHAOS_TENANTS):
+        h = p * N_HOSTS // CHAOS_TENANTS
+        live[h].append(fab.admit(h, CHAOS_SPAN))
+    fab.quiesce()
+    setup_s = time.perf_counter() - t0
+    clock = {"round": 0}
+    monitor = fab.enable_host_monitor(timeout=MONITOR_TIMEOUT,
+                                      clock=lambda: clock["round"])
+    plan = fab.inject_faults(FaultPlan(
+        FaultSpec(**CHAOS_SPEC), seed=seed,
+        fm_crash_epochs=(fab.fm.epoch + 2 + int(rng.integers(0, 3)),)))
+    revoked: list[tuple[int, int, int]] = []
+    down, fenced, detected_round = None, False, None
+    stale_check = stale_words = false_denials = words = checks = 0
+    zeros = np.zeros(4, bool)
+    for rnd in range(CHAOS_ROUNDS):
+        clock["round"] = rnd
+        op = int(rng.integers(0, 3))
+        if not fab.fm.crashed:
+            try:
+                if op == 0:
+                    hs = [h for h in live if live[h] and h != down]
+                    if hs:
+                        h = hs[int(rng.integers(0, len(hs)))]
+                        pid, start = live[h].pop()
+                        fab.fm.revoke_hwpid(pid)
+                        revoked.append((h, pid, start))
+                elif op == 1:
+                    h = int(rng.integers(0, N_HOSTS))
+                    if h != down and fab.free_pages(h) >= CHAOS_SPAN:
+                        live[h].append(fab.admit(h, CHAOS_SPAN))
+            except FMUnavailable:
+                pass                    # the crash point fired mid-op
+        elif rng.random() < 0.5:
+            fab.fm.restart()
+        if rnd == FAIL_ROUND and down is None:
+            down = int(rng.integers(0, N_HOSTS))     # falls silent
+        if down is not None and not fenced:
+            dead = fab.dead_hosts()
+            if dead:
+                if dead != [down]:
+                    raise AssertionError(f"seed {seed} round {rnd}: monitor "
+                                         f"lists {dead}, silent host {down}")
+                detected_round = rnd
+                fab.crash_host(down)                 # fence it
+                fenced = True
+                if fab.dead_hosts():
+                    raise AssertionError("a fenced host stays listed")
+        if rnd == REJOIN_ROUND and down is not None:
+            if not fenced:
+                raise AssertionError(f"seed {seed}: host {down} silent "
+                                     f"since round {FAIL_ROUND}, never "
+                                     "listed by the monitor")
+            fab.rejoin_host(down)
+            if down in fab.dead_hosts():
+                raise AssertionError("a rejoined host is listed dead")
+            down, fenced = None, False
+        for h in range(N_HOSTS):
+            if h != down and rng.random() < 0.7:
+                fab.deliver(h, int(rng.integers(1, 4)))
+        # route 1: the framework checker of each revoked span's host
+        for (h, pid, start) in revoked:
+            if h == down:
+                continue
+            res = rts[h].check(_span_ext(pid, start, 4), zeros)
+            stale_check += int(res.allowed.sum())
+            checks += 1
+        # route 2: one fabric step over every live row and every revoked
+        # row of the running hosts
+        assign = {}
+        spans = {}
+        for h in range(N_HOSTS):
+            pids = [(p, s, True) for p, s in live[h]] + \
+                [(p, s, False) for hh, p, s in revoked if hh == h]
+            if h != down and pids:
+                assign[h] = [p for p, _, _ in pids]
+                spans.update({p: (s, ok) for p, s, ok in pids})
+        rows = fab.fabric_rows(assign)
+        ext = np.stack([np.asarray(pack_ext_addr(
+            np.full(CHAOS_WORDS, pid),
+            spans[pid][0] + data_rng.integers(0, CHAOS_SPAN, CHAOS_WORDS)))
+            for _, pid in rows])
+        data = data_rng.integers(0, 1 << 32, ext.shape, dtype=np.uint32)
+        out, fault = fab.step_egress(data, ext, assign, need=1, key0=KEY0,
+                                     key1=KEY1)
+        released = ((fault == 0) | (out != 0)).cpu().numpy()
+        is_live = np.array([spans[pid][1] for _, pid in rows])
+        stale_words += int(released[~is_live].sum())
+        false_denials += int((fault[torch.from_numpy(is_live).to(
+            fault.device)] != 0).sum())
+        words += ext.size
+        for h in range(N_HOSTS):
+            if h != down:
+                monitor.beat(h)     # each running host's own timer
+    storm_s = time.perf_counter() - t0 - setup_s
+
+    # recovery: the storm passes; count barriers until reconvergence
+    if down is not None:
+        if not fenced:
+            fab.crash_host(down)
+        fab.rejoin_host(down)
+    fab.quiesce()                       # flushes the plan's delayed copies
+    fab.fm.bus.faults = None
+    fab.fm.faults = None
+
+    def converged() -> bool:
+        if any(rt.desynced for rt in rts):
+            return False
+        return not any(bool(rts[h].check(_span_ext(pid, start, 4),
+                                         zeros).allowed.any())
+                       for h, pid, start in revoked)
+
+    recovery = 0
+    while recovery < 8:
+        recovery += 1
+        fab.fm.restart()                # idempotent snapshot resync
+        fab.quiesce()
+        if converged():
+            break
+    else:
+        raise AssertionError(f"seed {seed}: no reconvergence in 8 barriers")
+    st = fab.stats()["faults"]
+    return dict(seed=seed, stale_reads_check=stale_check,
+                stale_words_egress=stale_words, false_denials=false_denials,
+                checks=checks, egress_words=words, revoked=len(revoked),
+                dropped=plan.dropped, duplicated=plan.duplicated,
+                delayed=plan.delayed, fm_crashes=plan.fm_crashes,
+                desync_events=st["desync_events"],
+                self_heals=st["self_heals"], resyncs=st["resyncs"],
+                snapshot_resyncs=st["snapshot_resyncs"],
+                fm_restarts=st["fm_restarts"],
+                detected_round=detected_round, recovery_rounds=recovery,
+                setup_s=setup_s, storm_s=storm_s,
+                wall_s=time.perf_counter() - t0)
+
+
+def chaos_path(dev) -> dict:
+    """Phase A: the chaos storm for every seed, every fabric launch held
+    against the plain version on its own operands after the storm."""
+    t0 = time.perf_counter()
+    fabric_check = FabricCheck()
+    fe.fabric_egress = fabric_check
+    reset_launches()
+    try:
+        seeds = []
+        for seed in CHAOS_SEEDS:
+            r = chaos_seed(dev, seed)
+            seeds.append(r)
+            log(f"main chaos seed {seed}: {N_HOSTS} hosts, "
+                f"{CHAOS_TENANTS} tenants, {CHAOS_ROUNDS} rounds: stale "
+                f"reads through check {r['stale_reads_check']} "
+                f"({r['checks']} checks), stale words through fabric_egress "
+                f"{r['stale_words_egress']} ({r['egress_words']} words), "
+                f"false denials {r['false_denials']}; dropped "
+                f"{r['dropped']}, duplicated {r['duplicated']}, delayed "
+                f"{r['delayed']}, fm_crashes {r['fm_crashes']}, "
+                f"desync_events {r['desync_events']}, self_heals "
+                f"{r['self_heals']}, resyncs {r['resyncs']}, "
+                f"snapshot_resyncs {r['snapshot_resyncs']}; silent host "
+                f"listed dead at round {r['detected_round']}; recovery "
+                f"rounds {r['recovery_rounds']}; setup {r['setup_s']:.3f} s,"
+                f" storm {r['storm_s']:.3f} s, wall {r['wall_s']:.3f} s")
+            if r["stale_reads_check"] or r["stale_words_egress"] or \
+                    r["false_denials"]:
+                raise AssertionError(f"chaos seed {seed}: {r}")
+            if r["dropped"] + r["duplicated"] + r["delayed"] == 0 or \
+                    r["fm_crashes"] != 1:
+                raise AssertionError(f"chaos seed {seed} left a fault class "
+                                     f"unexercised: {r}")
+        torch.cuda.synchronize()
+        counts = dict(launches)
+    finally:
+        fe.fabric_egress = fabric_check.kernel
+    n = len(fabric_check.launches)
+    if n != counts["fabric_egress"]:
+        raise AssertionError(f"{n} recorded fabric calls, "
+                             f"{counts['fabric_egress']} launches")
+    checked = fabric_check.check()
+    wall = time.perf_counter() - t0
+    log(f"main chaos: {n} fabric launches held against the plain version "
+        f"after the storms: 0 mismatching words and fault codes over "
+        f"{checked} words; phase wall {wall:.3f} s")
+    return dict(seeds=seeds, launches=counts, wall_s=wall)
+
+
+# Phase B: the reference's clocked timing row (benchmarks/scale_bench.py
+# `_bench_timing` at its full settings): 127 tenants on 255 hosts with
+# 1024-page spans, GAPBS traces of an RMAT scale-13 graph.
+TIMING_SPAN = 1024
+TIMING_STEPS = 6
+TIMING_BATCH = 512
+TIMING_GRAPH = dict(scale=13, avg_degree=12, seed=7)
+TIMING_CAP = 100_000
+TIMING_TRACES = ("pr", "bfs", "bc", "tc")
+
+
+def timed_trace(device, traces, *, sync) -> dict:
+    """One traced run of the clocked deployment on ``device``: returns the
+    trace's JSON, the replay report, the timing penalty, the live bus's
+    propagation cycles, every step's words and fault codes, and the wall
+    times."""
+    t0 = time.perf_counter()
+    cfg = TimingConfig()
+    cf = ClockedFabric(cfg, seed=SEED)
+    fab = ShardedFabric(SDM_PAGES, table_capacity=8192, n_shards=N_HOSTS,
+                        clock=cf, device=device)
+    for h in range(N_HOSTS):
+        fab.enroll(h)
+    active = [p * N_HOSTS // N_PROCS for p in range(N_PROCS)]
+    fab.begin_trace(label=f"hosts={N_HOSTS}")
+    tenants = {h: fab.admit(h, TIMING_SPAN) for h in active}
+    fab.quiesce()
+    assign = {h: tenants[h][0] for h in active}
+    ext_steps = np.stack([
+        gapbs.egress_batches(traces[TIMING_TRACES[i % len(TIMING_TRACES)]],
+                             hwpid=tenants[h][0], batch=TIMING_BATCH,
+                             n_steps=TIMING_STEPS,
+                             page_offset=tenants[h][1],
+                             page_span=TIMING_SPAN)[0]
+        for i, h in enumerate(active)])
+    setup_s = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED)
+    victim = active[0]
+    outs, step_ms = [], []
+    for s in range(TIMING_STEPS):
+        ext = ext_steps[:, s]
+        data = rng.integers(0, 1 << 32, ext.shape, dtype=np.uint32)
+        sync()
+        t = time.perf_counter()
+        out, fault = fab.step_egress(data, ext, assign, need=1, key0=KEY0,
+                                     key1=KEY1)
+        sync()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        outs.append((out, fault))
+        if s % 2 == 1:                  # churn commits between steps
+            fab.evict(victim, tenants[victim][0])
+            tenants[victim] = fab.admit(victim, TIMING_SPAN)
+            assign[victim] = tenants[victim][0]
+            fab.quiesce()
+    fab.quiesce()
+    trace = fab.end_trace()
+    wall_s = time.perf_counter() - t0
+    rep = replay(trace, cfg, seed=SEED)
+    live = fab.fm.bus.propagation_cycles() or [0]
+    return dict(fab=fab, assign=assign, ext=ext, data=data,
+                trace=trace.to_json(), replay=rep.to_dict(),
+                penalty=timing_penalty(trace, cfg),
+                live_prop_p99_ns=float(np.percentile(live, 99))
+                / cfg.clock_ghz, clock_cycles=cf.now, outs=outs,
+                setup_s=setup_s, step_ms=step_ms, wall_s=wall_s)
+
+
+def timing_path(dev) -> dict:
+    """Phase B: the traced clocked deployment on the card, each fabric
+    launch held against the plain version after the run; the same phase
+    with ``device="cpu"`` must give the same trace, replay report and
+    words; then the replayed timing figures."""
+    t0 = time.perf_counter()
+    g = graphs.make_graph(**TIMING_GRAPH)
+    traces = {k: gapbs.TRACES[k](g, cap=TIMING_CAP, seed=SEED)
+              for k in TIMING_TRACES}
+    traces_s = time.perf_counter() - t0
+    fabric_check = FabricCheck()
+    fe.fabric_egress = fabric_check
+    reset_launches()
+    try:
+        card = timed_trace(dev, traces, sync=torch.cuda.synchronize)
+        counts = dict(launches)
+    finally:
+        fe.fabric_egress = fabric_check.kernel
+    n = len(fabric_check.launches)
+    if n != TIMING_STEPS or counts["fabric_egress"] != n:
+        raise AssertionError(f"{n} recorded fabric calls and "
+                             f"{counts['fabric_egress']} launches in "
+                             f"{TIMING_STEPS} steps")
+    checked = fabric_check.check()
+    t = time.perf_counter()
+    cpu = timed_trace(torch.device("cpu"), traces, sync=lambda: None)
+    cpu_s = time.perf_counter() - t
+    for key in ("trace", "replay", "penalty", "live_prop_p99_ns",
+                "clock_cycles"):
+        if card[key] != cpu[key]:
+            raise AssertionError(f"timing path: the card's {key} differs "
+                                 "from the CPU run's")
+    for (co, cf), (po, pf) in zip(card["outs"], cpu["outs"]):
+        compare("fabric_egress (timing path, card against CPU run)",
+                (co.cpu(), cf.cpu()), (po, pf))
+    pen, rep = card["penalty"], card["replay"]
+    if not pen["penalty_cached_pct"] < pen["penalty_nocache_pct"]:
+        raise AssertionError(f"timing path: cached penalty not below the "
+                             f"no-cache penalty: {pen}")
+    prop = rep["propagation"]
+    rows = card["outs"][0][0].shape[0]
+    crit = rep["critical_path"]
+    links = {k: v["utilization"] for k, v in rep["links"].items()
+             if not k.startswith("host") or k == crit["link"]}
+    log(f"main timing: {N_HOSTS} hosts, {N_PROCS} tenants ({TIMING_SPAN}"
+        f"-page spans), ClockedFabric(TimingConfig(), seed={SEED}); GAPBS "
+        f"{list(TIMING_TRACES)} traces of RMAT scale "
+        f"{TIMING_GRAPH['scale']} (cap {TIMING_CAP}) made in "
+        f"{traces_s:.3f} s; {TIMING_STEPS} steps of {rows} x "
+        f"{TIMING_BATCH} words, evict + re-admit after every second step; "
+        f"{n} fabric launches bit-exact against the plain version after "
+        f"the run ({checked} words); trace JSON, replay report, penalties "
+        f"and every step's words equal to the device='cpu' run's "
+        f"({cpu_s:.3f} s)")
+    log(f"main timing (card): setup {card['setup_s']:.3f} s, step wall ms "
+        f"{[round(x, 4) for x in card['step_ms']]}, phase wall "
+        f"{card['wall_s']:.3f} s")
+    log(f"main timing (simulated cycles at the paper's Table 2 timings, "
+        f"not card times): propagation p50 {prop['p50_ns']} ns, p99 "
+        f"{prop['p99_ns']} ns, max {prop['max_ns']} ns over {prop['n']} "
+        f"copies; live bus p99 {card['live_prop_p99_ns']:.1f} ns; critical "
+        f"path {crit}; link utilization {links}; penalty cached "
+        f"{pen['penalty_cached_pct']} % / no cache "
+        f"{pen['penalty_nocache_pct']} % ({pen['perm_cache_bytes']} B "
+        f"PermCache); {len(card['trace']['events'])} trace events")
+
+    # the steady step's kernel time at this view (no trace recording)
+    fab, assign, ext, data = (card[k] for k in ("fab", "assign", "ext",
+                                                 "data"))
+
+    def step():
+        return fab.step_egress(data, ext, assign, need=1, key0=KEY0,
+                               key1=KEY1)
+
+    kernel_ms = kernel_only_ms(step, "fabric_egress_kernel")
+    _, fault = step()
+    b_ms, b_by = fabric_bound(torch.from_numpy(ext).to(dev), fault,
+                              fab.fabric_view(assign))
+    log(f"main timing steady step: fabric_egress kernel {kernel_ms} ms "
+        f"against its bound {b_ms:.5f} ms ({b_by}) at {rows} x "
+        f"{TIMING_BATCH}")
+    wall = time.perf_counter() - t0
+    log(f"main timing: phase wall {wall:.3f} s")
+    return dict(propagation=prop, critical_path=crit,
+                link_utilization=links, penalty=pen,
+                live_prop_p99_ns=card["live_prop_p99_ns"],
+                clock_cycles=card["clock_cycles"],
+                trace_events=len(card["trace"]["events"]),
+                launches=counts, setup_s=card["setup_s"],
+                step_ms=card["step_ms"], card_wall_s=card["wall_s"],
+                cpu_run_s=cpu_s, traces_s=traces_s, kernel_ms=kernel_ms,
+                bound_ms=b_ms, bound_by=b_by, wall_s=wall)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1108,12 +1514,24 @@ def main() -> int:
                  "fabric_egress"):
         if counts[name] == 0:
             raise AssertionError(f"{name} never launched on the main path")
-    # main path 2: serving (counts reset and read inside)
+    # main path 2: serving; main paths 3 and 4: the chaos storm and the
+    # clocked timing path (each resets and reads the counts inside)
     serve = serve_main_path(dev)
-    for name, n in serve["launches"].items():
-        counts[name] += n
+    chaos = chaos_path(dev)
+    timing = timing_path(dev)
+    for path in (serve, chaos, timing):
+        for name, n in path["launches"].items():
+            counts[name] += n
+    for name, path in (("chaos", chaos), ("timing", timing)):
+        if path["launches"]["fabric_egress"] == 0:
+            raise AssertionError(f"fabric_egress never launched on the "
+                                 f"{name} path")
+    log(f"slice phases on {smi}: chaos storm wall {chaos['wall_s']:.3f} s "
+        f"({len(CHAOS_SEEDS)} seeds), timing path wall "
+        f"{timing['wall_s']:.3f} s")
 
     line = {"kernels": [], "main_path": main, "serve_path": serve,
+            "chaos_path": chaos, "timing_path": timing,
             "card": smi, "peaks": {"bytes_per_s": PEAK_BYTES_PER_S,
                                    "int32_ops_per_s": ops_per_s,
                                    "f32_flops": PEAK_F32_FLOPS,

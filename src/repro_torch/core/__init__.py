@@ -6,13 +6,14 @@ Paper components -> modules:
   Permission table    -> repro_torch.core.table (PermissionTable / HostTable)
   Permission checker  -> repro_torch.core.checker.check_access
   Permission cache    -> repro_torch.core.checker.PermCache
+                         (LRU model: repro_torch.core.cache.LruCache)
   Fabric manager      -> repro_torch.core.fm.FabricManager
   Sharded fabric      -> repro_torch.core.fabric.ShardedFabric
   Shared tensor pool  -> repro_torch.core.pool.SharedTensorPool
-
-The LRU cache model and fault plans are not ported yet.
+  Fault injection     -> repro_torch.core.faults.FaultPlan
 """
 from .bus import BISnpBus
+from .cache import LruCache
 from .checker import (
     FAULT_DESYNC,
     FAULT_NO_ABITS,
@@ -33,6 +34,7 @@ from .checker import (
 )
 from .crypto import arx_mac32, arx_mac64, derive_key, hmac_label
 from .fabric import FabricView, HostRuntime, ShardedFabric, stack_views
+from .faults import FaultPlan, FaultSpec, LinkFault
 from .fm import (BISnpEvent, FabricManager, FMUnavailable, JournalRecord,
                  Proposal)
 from .pool import GatherResult, Region, SharedTensorPool, checked_gather

@@ -38,9 +38,10 @@ and emits ONE stacked kernel row per (host, tenant) pair — co-resident
 tenants share the host's shard arrays but carry their own permbits row.
 
 Device: every tensor of a fabric lives on ``ShardedFabric(device=...)``
-(default CUDA; raises without it unless ``device="cpu"``).  Fault plans,
-the heartbeat host monitor, timing traces and the clocked bus come with the
-port of ``core/faults.py``, ``runtime/fault_tolerance.py`` and ``memsim``.
+(default CUDA; raises without it unless ``device="cpu"``).  The control
+plane's fault points (`inject_faults`), the heartbeat host monitor
+(`enable_host_monitor`), the clocked bus (``clock=``) and timing traces
+(`begin_trace`) are host-side Python and numpy, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -123,6 +124,8 @@ class HostRuntime:
         copy that fills the last hole heals it; a ``snapshot=True`` event
         rebuilds the whole view."""
         self.bisnp_seen += 1
+        if self.fabric.host_monitor is not None:
+            self.fabric.host_monitor.beat(self.host_id)
         if ev.snapshot:
             self._apply_snapshot(ev)
             return
@@ -312,6 +315,8 @@ class HostRuntime:
         or quarantine) answers a uniform `FAULT_DESYNC` deny WITHOUT
         consulting table or cache.  Each denied batch also ticks the resync
         backoff, so a stalled-but-checking host works its own way back."""
+        if self.fabric.host_monitor is not None:
+            self.fabric.host_monitor.beat(self.host_id)
         if self.crashed:
             raise RuntimeError(f"host {self.host_id} is crashed — "
                                f"rejoin_host() first")
@@ -401,15 +406,11 @@ class ShardedFabric:
                  *, max_bisnp_lag: int | None = 64,
                  perm_cache_bytes: int = PERM_CACHE_BYTES, clock=None,
                  device=None):
-        if clock is not None:
-            raise NotImplementedError(
-                "the clocked BISnp bus comes with the port of memsim "
-                "(workloads, memsim and benches slice)")
         if not (1 <= n_shards <= 255):
             raise ValueError("n_shards must be in [1, 255] (paper abstract)")
         self.device = resolve_device(device)
         self.fm = FabricManager(sdm_pages, table_capacity,
-                                max_bisnp_lag=max_bisnp_lag)
+                                max_bisnp_lag=max_bisnp_lag, clock=clock)
         self.n_shards = n_shards
         self.perm_cache_bytes = perm_cache_bytes
         self.runtimes: dict[int, HostRuntime] = {}
@@ -429,6 +430,11 @@ class ShardedFabric:
         self._fabric_view_key = None
         self.view_rebuilds = 0
         self.view_reuses = 0
+        # timing-trace recorder (memsim.replay.FabricTrace); set by
+        # begin_trace(), consumed by end_trace() — None = not recording
+        self._trace = None
+        # heartbeat crash detector (enable_host_monitor); None = off
+        self.host_monitor = None
 
     # -- topology ------------------------------------------------------------
     def shard_range(self, host_id: int) -> tuple[int, int]:
@@ -568,11 +574,16 @@ class ShardedFabric:
 
     # -- faults, crash, rejoin -----------------------------------------------
     def inject_faults(self, plan) -> "object":
-        """Fault plans (dropped, duplicated or delayed BISnp copies,
-        scheduled FM crashes) come with the port of ``core/faults.py``."""
-        raise NotImplementedError(
-            "fault injection comes with the port of core/faults.py "
-            "(fault-tolerance slice)")
+        """Wire a `core.faults.FaultPlan` into every fault point this
+        deployment owns: the bus (message drop/dup/reorder/delay), the FM
+        (scheduled crash between journal append and broadcast), and — in
+        clocked mode — the per-host downlinks (degradation/outages).
+        Returns the plan for chaining."""
+        self.fm.bus.faults = plan
+        self.fm.faults = plan
+        if self.fm.bus.clock is not None:
+            plan.apply_link_faults(self.fm.bus.clock)
+        return plan
 
     def crash_host(self, host_id: int) -> None:
         """Fail-stop one host: detach it from the bus (its queued events
@@ -584,6 +595,8 @@ class ShardedFabric:
             raise ValueError(f"host {host_id} already crashed")
         rt.crashed = True
         self.fm.bus.detach(host_id)
+        if self.host_monitor is not None:
+            self.host_monitor.forget(host_id)
 
     def rejoin_host(self, host_id: int) -> None:
         """Bring a crashed host back cold: fresh PermCache fenced at the
@@ -602,13 +615,27 @@ class ShardedFabric:
         rt.views = _permcheck_mod().ShardViewCache()
         self._fabric_view_key = None
         self.fm.bus.attach(host_id, rt.on_bisnp)
+        if self.host_monitor is not None:
+            self.host_monitor.beat(host_id)
 
     def enable_host_monitor(self, *, timeout: float, clock=None):
-        """The heartbeat crash detector comes with the port of
-        ``runtime/fault_tolerance.py``."""
-        raise NotImplementedError(
-            "the host monitor comes with the port of "
-            "runtime/fault_tolerance.py (fault-tolerance slice)")
+        """Attach a heartbeat-based crash detector (the `FailureDetector`
+        of `runtime.fault_tolerance`, deterministic under an injected
+        clock): every delivered BISnp and every `check()` beat the host's
+        entry; `dead_hosts()` lists hosts silent for longer than
+        `timeout`.  Returns the detector."""
+        from ..runtime.fault_tolerance import FailureDetector
+        self.host_monitor = FailureDetector(timeout=timeout, clock=clock)
+        for h in self.runtimes:
+            self.host_monitor.beat(h)
+        return self.host_monitor
+
+    def dead_hosts(self) -> list[int]:
+        """Hosts the heartbeat monitor considers crashed (empty when no
+        monitor is attached — call `enable_host_monitor` first)."""
+        if self.host_monitor is None:
+            return []
+        return self.host_monitor.dead()
 
     # -- batched cross-host egress -------------------------------------------
     def fabric_rows(self, hwpid_by_host: dict) -> list[tuple[int, int]]:
@@ -650,20 +677,48 @@ class ShardedFabric:
         `data` u32[R, B] (numpy ``uint32`` or an int32 tensor of the same
         bits) / `ext_addrs` i32[R, B] are row-aligned with
         `fabric_rows(hwpid_by_host)`.  Returns (out i32[R, B] u32 bits,
-        fault i32[R, B]) on the fabric's device.
+        fault i32[R, B]) on the fabric's device.  While a trace records,
+        the step's pages are taken from `ext_addrs` on the host: numpy
+        input as it is, a tensor through one copy to the CPU.
         """
         from ..kernels.fabric_egress import fabric_egress
         view = self.fabric_view(hwpid_by_host)
+        if self._trace is not None:
+            from .table import PAGE_MASK
+            host_ext = ext_addrs.cpu().numpy() \
+                if isinstance(ext_addrs, torch.Tensor) else ext_addrs
+            pages = np.asarray(host_ext, np.int64) & PAGE_MASK
+            self._trace.record_egress(self.fabric_rows(hwpid_by_host), pages,
+                                      epoch=self.fm.epoch)
         return fabric_egress(as_int32(data, self.device),
                              as_int32(ext_addrs, self.device), view, need=need,
                              key0=key0, key1=key1)
 
     # -- timing-trace recording ---------------------------------------------
     def begin_trace(self, *, label: str = ""):
-        """Fabric timing traces come with the port of ``memsim``."""
-        raise NotImplementedError(
-            "timing traces come with the port of memsim (workloads, memsim "
-            "and benches slice)")
+        """Start recording a fabric timing trace (commit fan-outs via the
+        bus tap + egress page streams from `step_egress`).  Returns the
+        `memsim.replay.FabricTrace`; feed it to `end_trace()` when done,
+        then replay it through the clocked cost model."""
+        from ..memsim.replay import FabricTrace
+        if self._trace is not None:
+            raise RuntimeError("a trace is already recording")
+        tr = FabricTrace(label=label)
+        self._trace = tr
+        self.fm.bus.tap = lambda ev, n_hosts: tr.record_commit(
+            ev.epoch, n_hosts)
+        return tr
+
+    def end_trace(self):
+        """Stop recording, finalize the trace (derive per-row PermCache
+        miss profiles from the recorded page streams), and return it."""
+        tr = self._trace
+        if tr is None:
+            raise RuntimeError("no trace is recording")
+        self._trace = None
+        self.fm.bus.tap = None
+        tr.finalize(perm_cache_bytes=self.perm_cache_bytes)
+        return tr
 
     # -- accounting ----------------------------------------------------------
     def storage_overhead(self) -> dict:

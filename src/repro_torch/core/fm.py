@@ -26,8 +26,7 @@ it does observe reveals the epoch gap and triggers the drop-everything
 resync.
 
 Pure Python and numpy: the port keeps its own copy so that it never imports
-the JAX package.  The scheduled-crash hook of ``core/faults.py`` comes with
-that module's port; `crash()` / `restart()` work without it.
+the JAX package.
 """
 from __future__ import annotations
 
@@ -100,7 +99,7 @@ class FabricManager:
 
     def __init__(self, sdm_pages: int, table_capacity: int,
                  master_secret: bytes = b"space-control-fm-master",
-                 *, max_bisnp_lag: int | None = 64):
+                 *, max_bisnp_lag: int | None = 64, clock=None):
         self._k_fm = derive_key(master_secret, "K_FM")
         self.sdm_pages = sdm_pages
         self.table = HostTable(table_capacity)
@@ -110,8 +109,10 @@ class FabricManager:
         self._free_hwpids: list[int] = list(range(1, MAX_HWPID + 1))
         self._hwpid_global: set[int] = set()
         self._bisnp_listeners: list[Callable[[BISnpEvent], None]] = []
-        # async delivery plane: HostRuntimes attach here (core.fabric)
-        self.bus = BISnpBus(max_lag=max_bisnp_lag)
+        # async delivery plane: HostRuntimes attach here (core.fabric).
+        # `clock` (a memsim.clock.ClockedFabric) switches the bus to
+        # simulated-time delivery; None keeps the manual pump.
+        self.bus = BISnpBus(max_lag=max_bisnp_lag, clock=clock)
         self.bisnp_errors: list[tuple[Callable, BISnpEvent,
                                       BaseException]] = []
         self.audit_log: list[str] = []
@@ -130,6 +131,10 @@ class FabricManager:
         self._pending_hwpid_ops: list[tuple[str, int]] = []
         self.crashed = False
         self.restarts = 0
+        # fault injection hook (core.faults.FaultPlan): checked after
+        # the journal append, before the broadcast — the lost-broadcast
+        # window the journal exists for.  None = never crashes.
+        self.faults = None
 
     # -- host enrolment --------------------------------------------------------
     def enroll_host(self, host_id: int, n_cores: int = 8) -> SpaceEngine:
@@ -205,6 +210,10 @@ class FabricManager:
                                 hwpid_ops=tuple(self._pending_hwpid_ops))
             self._pending_hwpid_ops.clear()
             self.journal.append(rec)
+            if self.faults is not None and \
+                    self.faults.should_crash_fm(info.epoch):
+                self.crash()   # journaled but never broadcast — the
+                return info    # restart path owes the fabric this record
             for start, n in ranges:
                 self._broadcast(BISnpEvent(start, n, epoch=info.epoch,
                                            min_entry_idx=info.min_shifted_entry))

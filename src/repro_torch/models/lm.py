@@ -24,8 +24,8 @@ from ..layers.common import (SwiGLU, embed, init_rms_norm, normal, rms_norm,
 def _dense_only(cfg: ArchConfig) -> None:
     if cfg.family == "moe":
         raise NotImplementedError(
-            "the moe family comes with the port of the remaining model "
-            "families (ROADMAP Queue 1 item 9)")
+            "the moe family (layers/moe.py) comes with the port of the MoE "
+            "slice (ROADMAP Queue 1 item c)")
 
 
 # ---------------------------------------------------------------------------

@@ -14,15 +14,15 @@ from ..configs.base import ArchConfig
 from . import lm
 
 _PENDING = {
-    "moe": "the moe family comes with the port of the remaining model "
-           "families (ROADMAP Queue 1 item 9)",
+    "moe": "the moe family (layers/moe.py) comes with the port of the MoE "
+           "slice (ROADMAP Queue 1 item c)",
     "ssm": "the ssm family (models/ssm.py, layers/mamba.py) comes with the "
-           "port of the remaining model families (ROADMAP Queue 1 item 9)",
+           "port of the remaining model families (ROADMAP Queue 1 item e)",
     "hybrid": "the hybrid family (models/hybrid.py) comes with the port of "
-              "the remaining model families (ROADMAP Queue 1 item 9)",
+              "the remaining model families (ROADMAP Queue 1 item e)",
     "encdec": "the encdec family (models/encdec.py, cross attention) comes "
               "with the port of the remaining model families (ROADMAP "
-              "Queue 1 item 9)",
+              "Queue 1 item e)",
 }
 
 

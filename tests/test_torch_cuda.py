@@ -7,11 +7,17 @@ machine that has only PyTorch and CUDA:
 Elsewhere every test skips (the ``cuda`` fixture decides, never at import).
 Each test also checks that the wrapper counted exactly its own launches.
 """
+import functools
+import importlib
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
 
+import repro_torch.core as tcore
 from repro_torch import convert
+from repro_torch.checkpointing import store
 from repro_torch.core import ShardedFabric, pack_ext_addr
 from repro_torch.core.fabric import stack_views
 from repro_torch.kernels import launches, ops
@@ -19,10 +25,14 @@ from repro_torch.kernels import fabric_egress as tfe
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import memcrypt as tmc
 from repro_torch.kernels import permcheck as tpc
+from repro_torch.memsim import clock as tclock
+from repro_torch.workloads import gapbs as tgapbs
+from repro_torch.workloads import graphs as tgraphs
 from torch_parity import (BROKEN_SHARDS, EDGE_SHARDS,  # noqa: F401
-                          assert_equal, broken_pages, broken_shard, cuda,
-                          edge_ext, edge_pages, edge_shard, mk_ext, mk_table,
-                          search_egress, search_verdict, words)
+                          assert_equal, broken_pages, broken_shard,
+                          chaos_matrix, cuda, edge_ext, edge_pages,
+                          edge_shard, mk_ext, mk_table, search_egress,
+                          search_verdict, traced_fabric, words)
 
 SDM = 1 << 22
 
@@ -401,3 +411,109 @@ def test_flash_attention_refuses_misaligned_operands(cuda):  # noqa: F811
         with pytest.raises(ValueError, match="16-byte aligned"):
             tfa.flash_attention(*args)
     assert launches["flash_attention"] == before
+
+
+# ---------------------------------------------------------------------------
+# The framework checker's PermCache, the chaos matrix, a traced clocked
+# fabric and the checkpoint store: the card held to the port on the CPU,
+# which the CPU parity tests hold to the JAX package.
+# ---------------------------------------------------------------------------
+
+def _port(device):
+    """The port's pieces for the shared fabric scenarios, on ``device``."""
+    return SimpleNamespace(
+        core=tcore, clock=tclock, gapbs=tgapbs, graphs=tgraphs,
+        replay=importlib.import_module("repro_torch.memsim.replay"),
+        Fabric=functools.partial(ShardedFabric, device=device),
+        zeros=lambda n: np.zeros(n, bool))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ways", [1, 2, 4])
+@pytest.mark.parametrize("fenced", [True, False])
+def test_cached_check_access_state_on_the_card(cuda, ways,  # noqa: F811
+                                               fenced):
+    """Random batches, most of them many lanes to a set, through the same
+    PermCache on the card and on the CPU: the CheckResult and the cache's
+    tags, entries, PLRU bits, counters and epoch equal after each batch.
+    On the card a scatter with repeated indices has no set order, so this
+    holds the checker's last-lane-wins reduction to the CPU's."""
+    rng = np.random.default_rng(ways)
+    fm = tcore.FabricManager(1 << 16, 512)
+    fm.enroll_host(0)
+    for k in range(40):
+        fm.propose(tcore.Proposal(0, 1 + k % 5, 0,
+                                  int(k * 100 + rng.integers(0, 30)), 60,
+                                  3 if k % 3 else 1))
+    epoch = fm.epoch if fenced else fm.epoch - 1
+    devs = ("cpu", cuda)
+    tables = {d: fm.table.to_device(device=d) for d in devs}
+    local = {d: tcore.make_hwpid_local([1, 2, 3], device=d) for d in devs}
+    caches = {d: tcore.make_perm_cache(ways=ways, epoch=epoch, device=d)
+              for d in devs}
+    all_hit = 0
+    for it in range(16):
+        if it in (8, 9):     # one page twice: the second batch all-hits
+            ext = np.full(2048, (1 << 24) | int(tables["cpu"].starts[0]),
+                          np.int32)
+            wr = np.zeros(2048, bool)
+        else:
+            if it % 4 == 3:
+                pages = rng.integers(0, 4200, 2048)
+            else:            # many distinct pages colliding on a few sets
+                pages = rng.integers(0, 6, 2048) * 64 + \
+                    rng.integers(0, 5, 2048) * 4096
+            ext = ((rng.choice([1, 2, 3, 4, 0, -1], 2048) << 24) |
+                   pages).astype(np.int32)
+            wr = rng.random(2048) < 0.3
+        res = {}
+        for d in devs:
+            res[d], caches[d] = tcore.cached_check_access(
+                tables[d], local[d], torch.as_tensor(ext, device=d),
+                torch.as_tensor(wr, device=d), caches[d])
+        for f in ("allowed", "fault", "entry_idx", "probes"):
+            assert_equal(getattr(res["cpu"], f), getattr(res[cuda], f))
+        for f in ("tag", "entry", "plru", "hits", "misses"):
+            assert_equal(getattr(caches["cpu"], f), getattr(caches[cuda], f))
+        assert int(caches["cpu"].epoch) == int(caches[cuda].epoch)
+        assert caches[cuda].tag.is_cuda
+        all_hit += int(res[cuda].probes.sum()) == 0
+    assert all_hit >= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [1, 2, 3, 4, 5])
+def test_chaos_matrix_on_the_card(cuda, seed):  # noqa: F811
+    """The 4-host chaos matrix with the runtimes on the card: zero stale
+    reads and every round's counters, verdicts and fault codes as on the
+    CPU."""
+    assert chaos_matrix(_port(cuda), seed) == chaos_matrix(_port("cpu"), seed)
+
+
+@pytest.mark.cuda
+def test_traced_fabric_on_the_card(cuda):  # noqa: F811
+    """A traced clocked fabric stepping through the fabric kernel: the same
+    words, fault codes, trace JSON and replay report as on the CPU."""
+    before = launches["fabric_egress"]
+    got = traced_fabric(_port(cuda))
+    assert launches["fabric_egress"] == before + 4
+    assert got == traced_fabric(_port("cpu"))
+
+
+@pytest.mark.cuda
+def test_store_round_trip_of_card_tensors(cuda, tmp_path):  # noqa: F811
+    g = torch.Generator(device=cuda).manual_seed(0)
+    tree = {"w": torch.randn(64, 32, device=cuda, generator=g),
+            "ids": torch.arange(100, dtype=torch.int32, device=cuda),
+            "cpu": [torch.ones(3), 7]}
+    store.save(str(tmp_path), 1, tree)
+    like = {"w": torch.zeros(64, 32, device=cuda),
+            "ids": torch.zeros(100, dtype=torch.int32, device=cuda),
+            "cpu": [torch.zeros(3), 0]}
+    got, step = store.restore(str(tmp_path), like)
+    assert step == 1 and got["cpu"][1] == 7
+    for k in ("w", "ids"):
+        assert got[k].device == tree[k].device and got[k].dtype == \
+            tree[k].dtype
+        assert torch.equal(got[k], tree[k])
+    assert torch.equal(got["cpu"][0], tree["cpu"][0])

@@ -248,16 +248,10 @@ def test_shared_residency_and_churn_match():
                  np.zeros(300, bool))
 
 
-def test_unported_fabric_features_raise():
+def test_crash_host_bricks_and_rejoin_is_cold():
+    """A crashed host refuses checks; a rejoined one answers again from a
+    cold cache (this host holds no grant, so it denies)."""
     fab = ShardedFabric(1 << 10, 64, 2, device="cpu")
-    with pytest.raises(NotImplementedError):
-        ShardedFabric(1 << 10, 64, 2, device="cpu", clock=object())
-    with pytest.raises(NotImplementedError):
-        fab.inject_faults(object())
-    with pytest.raises(NotImplementedError):
-        fab.enable_host_monitor(timeout=1.0)
-    with pytest.raises(NotImplementedError):
-        fab.begin_trace()
     fab.enroll(0)
     fab.crash_host(0)
     with pytest.raises(RuntimeError):

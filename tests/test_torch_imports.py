@@ -47,6 +47,28 @@ def test_importing_the_port_loads_no_jax():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+def test_fault_and_timing_modules_import_with_jax_blocked():
+    """The fault-tolerance, memsim and workload modules import while any
+    import of JAX or the JAX package raises."""
+    mods = ["repro_torch.core.faults", "repro_torch.core.cache",
+            "repro_torch.runtime", "repro_torch.runtime.fault_tolerance",
+            "repro_torch.checkpointing", "repro_torch.checkpointing.store",
+            "repro_torch.memsim", "repro_torch.memsim.clock",
+            "repro_torch.memsim.lru", "repro_torch.memsim.model",
+            "repro_torch.memsim.replay", "repro_torch.workloads",
+            "repro_torch.workloads.graphs", "repro_torch.workloads.gapbs"]
+    code = ("import importlib, sys\n"
+            f"for name in {FORBIDDEN!r}:\n"
+            "    sys.modules[name] = None\n"
+            f"for m in {mods!r}:\n"
+            "    importlib.import_module(m)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          env={"PYTHONPATH": str(REPO / "src"),
+                               "PATH": "/usr/bin:/bin"},
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 def test_entry_points_need_cuda_unless_asked_for_the_cpu(monkeypatch):
     from repro_torch.core import (FabricManager, ShardedFabric, make_table,
                                   make_perm_cache)
@@ -63,6 +85,12 @@ def test_entry_points_need_cuda_unless_asked_for_the_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         FabricManager(1 << 10, 8).table.to_device()
     assert ShardedFabric(1 << 10, 64, 2, device="cpu").device.type == "cpu"
+    from repro_torch.workloads import gapbs, graphs
+    g = graphs.make_graph(scale=6, avg_degree=4)
+    for fn in (gapbs.pagerank, gapbs.connected_components):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            fn(g)
+        assert fn(g, device="cpu").device.type == "cpu"
 
 
 def test_serving_entry_points_need_cuda_unless_asked_for_the_cpu(

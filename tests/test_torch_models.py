@@ -102,7 +102,8 @@ def test_layer_schedule_and_cache_shapes():
                                   "zamba2-1.2b", "seamless-m4t-medium"])
 def test_unported_families_name_their_slice(arch):
     cfg = smoke_config(ARCHS[arch])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+    item = "c" if arch == "olmoe-1b-7b" else "e"
+    with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}\\)"):
         registry.init_params(cfg, torch.Generator(), "cpu")
 
 

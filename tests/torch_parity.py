@@ -200,3 +200,177 @@ def search_egress(data, ext_addrs, view, *, hwpid, need, key0, key1,
         tag <= 0, 1, torch.where(tag != hwpid, 2,
                                  torch.where(idx < 0, 3, 4))))
     return torch.where(allowed, dec, 0), fault.to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# Fabric scenarios run through either package.  ``P`` names one package's
+# pieces: ``P.core`` (its ``core`` package), ``P.Fabric`` (its
+# ``ShardedFabric``, bound to a device for the port), ``P.zeros(n)`` (a
+# write mask of n False) and, for the timing path, ``P.clock``,
+# ``P.replay`` and ``P.gapbs`` (its ``memsim.clock``, ``memsim.replay`` and
+# ``workloads.gapbs``).  Each returns a record of plain Python values, so the
+# records of two runs compare with ``==``.
+# ---------------------------------------------------------------------------
+
+CHAOS_SPEC = dict(drop_p=0.15, dup_p=0.10, reorder_p=0.10, delay_p=0.10,
+                  max_delay=3)
+
+
+def mk_fabric(P, n_hosts=4, span=32, clock=None):
+    """A fabric of ``n_hosts`` hosts with one ``span``-page tenant each,
+    quiesced.  Returns (fabric, runtimes, {host: (hwpid, start)})."""
+    fab = P.Fabric(sdm_pages=1 << 14, table_capacity=2048, n_shards=n_hosts,
+                   clock=clock)
+    rts = [fab.enroll(h) for h in range(n_hosts)]
+    tenants = {h: fab.admit(h, span) for h in range(n_hosts)}
+    fab.quiesce()
+    return fab, rts, tenants
+
+
+def span_ext(P, pid, start, n=8):
+    """Tagged addresses of pages ``start .. start + n - 1`` for ``pid``."""
+    return P.core.pack_ext_addr(np.full(n, pid, np.int32),
+                                (start + np.arange(n)).astype(np.int32))
+
+
+def check_span(P, rt, pid, start, n=8):
+    """(allowed, fault) of one read check of a span, as lists."""
+    res = rt.check(span_ext(P, pid, start, n), P.zeros(n))
+    return as_np(res.allowed).tolist(), as_np(res.fault).tolist()
+
+
+def span_allowed(P, rt, pid, start, n=8):
+    return all(check_span(P, rt, pid, start, n)[0])
+
+
+def fault_counters(fab, plan=None):
+    """The fabric's fault and bus counters and epoch, and the plan's."""
+    st = fab.stats()
+    out = [st["faults"], st["bus"], st["epoch"]]
+    if plan is not None:
+        out.append((plan.dropped, plan.duplicated, plan.delayed,
+                    plan.fm_crashes, plan.stashed()))
+    return out
+
+
+def chaos_matrix(P, seed, *, rounds=14):
+    """The reference's chaos matrix (``tests/test_faults.py``) at 4 hosts:
+    churn under dropped, duplicated, reordered and delayed BISnp copies,
+    one FM crash epoch and one host crash and rejoin, every revoked span
+    checked every round; then restart + quiesce.  Asserts zero stale reads
+    and converged verdicts; the record holds every round's counters and
+    every check's verdict and fault codes."""
+    rng = np.random.default_rng(seed)
+    n_hosts = 4
+    fab, rts, tenants = mk_fabric(P, n_hosts=n_hosts, span=16)
+    plan = fab.inject_faults(P.core.FaultPlan(
+        P.core.FaultSpec(**CHAOS_SPEC), seed=seed,
+        fm_crash_epochs=(fab.fm.epoch + 2 + int(rng.integers(0, 3)),)))
+    live = {h: [tenants[h]] for h in range(n_hosts)}
+    revoked = []
+    crashed_host = None
+    stale_reads = 0
+    log = []
+    for rnd in range(rounds):
+        op = int(rng.integers(0, 3))
+        if not fab.fm.crashed:
+            try:
+                if op == 0:
+                    hs = [h for h in live if live[h] and h != crashed_host]
+                    if hs:
+                        h = hs[int(rng.integers(0, len(hs)))]
+                        pid, start = live[h].pop()
+                        fab.fm.revoke_hwpid(pid)
+                        revoked.append((h, pid, start))
+                elif op == 1:
+                    h = int(rng.integers(0, n_hosts))
+                    if h != crashed_host and fab.free_pages(h) >= 16:
+                        live[h].append(fab.admit(h, 16))
+            except P.core.FMUnavailable:
+                pass
+        elif rng.random() < 0.5:
+            fab.fm.restart()
+        if rnd == 5 and crashed_host is None:
+            crashed_host = int(rng.integers(0, n_hosts))
+            fab.crash_host(crashed_host)
+        if rnd == 10 and crashed_host is not None:
+            fab.rejoin_host(crashed_host)
+            crashed_host = None
+        for h in range(n_hosts):
+            if h != crashed_host and rng.random() < 0.7:
+                fab.deliver(h, int(rng.integers(1, 4)))
+        for (h, pid, start) in revoked:
+            if h == crashed_host:
+                continue
+            allowed, fault = check_span(P, rts[h], pid, start, 4)
+            stale_reads += sum(allowed)
+            log.append((rnd, h, pid, allowed, fault))
+        log.append(fault_counters(fab, plan))
+    assert stale_reads == 0
+    if crashed_host is not None:
+        fab.rejoin_host(crashed_host)
+    fab.quiesce()
+    fab.fm.bus.faults = None
+    fab.fm.faults = None
+    fab.fm.restart()
+    fab.quiesce()
+    assert all(not rt.desynced for rt in rts)
+    assert plan.dropped + plan.duplicated + plan.delayed > 0
+    for (h, pid, start) in revoked:
+        assert not span_allowed(P, rts[h], pid, start, 4)
+    for h, grants in live.items():
+        for pid, start in grants:
+            assert span_allowed(P, rts[h], pid, start, 4), (seed, h, pid)
+    return log + fault_counters(fab, plan)
+
+
+def traced_fabric(P, *, n_hosts=8, n_procs=8, scale=10, steps=4, batch=128,
+                  span=1024, cap=20_000, seed=0):
+    """The reference's clocked timing row (``benchmarks/scale_bench.py``
+    ``_bench_timing``) at a small size: a `ClockedFabric` deployment, GAPBS
+    traces replayed as egress batches between `begin_trace` and
+    `end_trace`, an evict + re-admit commit after every second step, then
+    `replay` and `timing_penalty` of the finalized trace.  The record holds
+    the trace's JSON, the replay report, the penalties, the live bus's
+    propagation cycles and every step's words and fault codes."""
+    g = P.graphs.make_graph(scale=scale, avg_degree=12, seed=7)
+    traces = {k: P.gapbs.TRACES[k](g, cap=cap, seed=seed)
+              for k in ("pr", "bfs", "bc", "tc")}
+    cfg = P.clock.TimingConfig()
+    cf = P.clock.ClockedFabric(cfg, seed=seed)
+    fab = P.Fabric(1 << 18, table_capacity=8192, n_shards=n_hosts, clock=cf)
+    for h in range(n_hosts):
+        fab.enroll(h)
+    active = [p * n_hosts // n_procs for p in range(n_procs)]
+    fab.begin_trace(label=f"hosts={n_hosts}")
+    tenants = {h: fab.admit(h, span) for h in active}
+    fab.quiesce()
+    assign = {h: tenants[h][0] for h in active}
+    names = list(traces)
+    ext_steps = np.stack([
+        P.gapbs.egress_batches(traces[names[i % len(names)]],
+                               hwpid=tenants[h][0], batch=batch,
+                               n_steps=steps, page_offset=tenants[h][1],
+                               page_span=span)[0]
+        for i, h in enumerate(active)])
+    rng = np.random.default_rng(seed)
+    victim = active[0]
+    outs = []
+    for s in range(steps):
+        ext = ext_steps[:, s]
+        data = rng.integers(0, 1 << 32, ext.shape, dtype=np.uint32)
+        out, fault = fab.step_egress(data, ext, assign, need=1)
+        outs.append((as_np(out).view(np.uint32).tolist(),
+                     as_np(fault).tolist()))
+        if s % 2 == 1:
+            fab.evict(victim, tenants[victim][0])
+            tenants[victim] = fab.admit(victim, span)
+            assign[victim] = tenants[victim][0]
+            fab.quiesce()
+    fab.quiesce()
+    trace = fab.end_trace()
+    rep = P.replay.replay(trace, cfg, seed=seed)
+    return {"trace": trace.to_json(), "replay": rep.to_dict(),
+            "penalty": P.replay.timing_penalty(trace, cfg),
+            "live": fab.fm.bus.propagation_cycles(), "cycles": cf.now,
+            "steps": outs}
