@@ -53,7 +53,23 @@ CUDA toolkit.  Phases, each reported on its own line:
      ``device="cpu"`` must give the same trace, replay report and words;
      then the replay's propagation percentiles and the PermCache timing
      penalty (simulated cycles at the paper's Table 2 timings, not card
-     times) and the steady step's kernel time.
+     times) and the steady step's kernel time;
+  8. main path 5, MoE serving — olmoe-1b-7b at full width and depth (f32)
+     through main path 2's sequence and checks, its decode step's device
+     time by op beside the expert-weight floor (every expert read once a
+     step), and the logits check under the router rule: a top-k choice
+     that flips between the kernel and the plain-attention run at a
+     probability gap under ``ROUTER_FLIP_GAP`` is the router's
+     discontinuity (the per-layer attention check then stands), a flip at
+     a larger gap a fault;
+  9. the family phase — falcon-mamba-7b at full width with 8 of its 64
+     layers (no kernel: held to a ``device="cpu"`` run on the same
+     weights) and zamba2-1.2b at full width and depth, both served through
+     the engine; seamless-m4t-medium at full width and depth through
+     prefill/decode with 64 encoder frames (the engine has none), every
+     attention, cross attention included, through the flash kernel;
+ 10. the shared-experts flow of ``examples/torch_serve_shared_experts.py``
+     at olmoe's full width with 2 layers.
   Each main path's kernel launch counts are zeroed just before it and read
   just after: each of its kernels must have launched.
 
@@ -64,7 +80,10 @@ and exits 2.
 """
 from __future__ import annotations
 
+import copy
 import functools
+import gc
+import importlib.util
 import json
 import re
 import subprocess
@@ -93,6 +112,8 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import memcrypt as mc  # noqa: E402
 from repro_torch.kernels import permcheck as pc  # noqa: E402
 from repro_torch.launch.serve import ServeEngine, run_demo  # noqa: E402
+from repro_torch.layers import moe_ep  # noqa: E402
+from repro_torch.layers.attention import Attention  # noqa: E402
 from repro_torch.memsim.clock import ClockedFabric, TimingConfig  # noqa: E402
 from repro_torch.memsim.replay import replay, timing_penalty  # noqa: E402
 from repro_torch.models import registry  # noqa: E402
@@ -644,11 +665,28 @@ FLASH_SWEEP = [
     (1, 2, 2, 256, 256, 64, True, 64), (1, 2, 2, 256, 256, 64, True, 160),
     (1, 2, 2, 128, 128, 128, True, -1), (2, 4, 2, 1, 300, 256, True, 40),
     (1, 4, 2, 9, 40, 64, True, 8),
+    # seamless's cross attention: non-causal prefill with Sq > Sk, and the
+    # non-causal split-K decode over the encoder frames
+    (4, 16, 16, 256, 64, 64, False, -1), (4, 16, 16, 1, 64, 64, False, -1),
 ]
 # qwen3-4b serving: batch 4, prompt 1024, 32 generated tokens
 SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = "qwen3-4b", 4, 1024, 32
 SERVE_REQUESTS = 8
 LOGITS_TOL = 1e-3
+# A top-k choice flips where two router probabilities are closer than the
+# attention error (about 1e-6 in f32): a flip at a gap under this is the
+# router's discontinuity, at a larger gap a fault.
+ROUTER_FLIP_GAP = 1e-5
+# decode-step device time by op: aten ops (self device time) per category
+OP_CATEGORIES = {
+    "expert bmm": ("aten::bmm",),
+    "dense matmul": ("aten::mm", "aten::addmm"),
+    "dispatch and gather": (
+        "aten::index", "aten::index_put_", "aten::_index_put_impl_",
+        "aten::cumsum", "aten::sort", "aten::one_hot", "aten::gather",
+        "aten::take_along_dim", "aten::bincount", "aten::cat",
+        "aten::scatter", "aten::where", "aten::nonzero"),
+}
 
 
 def close(got, want, tol: float) -> float:
@@ -929,158 +967,334 @@ class FabricCheck:
         return words
 
 
+def attention_modules(params) -> list:
+    """Every attention layer of a model, in module order: a unit's, both of
+    a pair's, zamba2's shared block, seamless's encoder, decoder self and
+    cross attention."""
+    return [m for m in params.modules() if isinstance(m, Attention)]
+
+
 def set_attend(params, fn) -> None:
-    for layer in params.layers:
-        layer.attn.attend = fn
+    for m in attention_modules(params):
+        m.attend = fn
 
 
-def serve_main_path(dev) -> dict:
-    """qwen3-4b at full width (f32) through the port's serving sequence:
-    ServeEngine(fused_egress=True), tenant-a and tenant-b on host 0, the
-    revocation, eviction and re-admission; then a decode step's launches,
-    wall time and device busy share, and the first group's logits against
-    a plain-attention run."""
-    cfg = replace(ARCHS[SERVE_ARCH], param_dtype="float32")
+def check_attention(params) -> list:
+    """One `AttendCheck` on each attention layer; returns them."""
+    checks = []
+    for m in attention_modules(params):
+        m.attend = AttendCheck()
+        checks.append(m.attend)
+    return checks
+
+
+def attend_errors(checks) -> dict:
+    """Largest kernel-vs-plain error per kind over the `AttendCheck`s that
+    saw it (an encoder layer never decodes)."""
+    return {kind: max(c.err[kind] for c in checks if kind in c.err)
+            for kind in ("prefill", "decode")
+            if any(kind in c.err for c in checks)}
+
+
+def free_card() -> None:
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+class RouterRecord:
+    """Stands in for `moe_ep._route` during a model check: records each
+    call's ``gate_idx`` and, per token, the gap between its k-th and
+    (k+1)-th router probability."""
+
+    def __init__(self):
+        self.route = moe_ep._route
+        self.calls = []
+
+    def __call__(self, xt, router, top_k):
+        out = self.route(xt, router, top_k)
+        probs = torch.softmax(xt.to(router.dtype) @ router, dim=-1)
+        top = probs.topk(top_k + 1, dim=-1).values
+        self.calls.append((out[1].clone(),
+                           (top[:, top_k - 1] - top[:, top_k]).clone()))
+        return out
+
+
+def router_flip(kernel_calls, plain_calls, label: str):
+    """The first router call whose ``gate_idx`` differs between the kernel
+    and the plain-attention run (every earlier call agreed, so only the
+    attention error separates its inputs): None where none differs; raises
+    where a differing token's k-th and (k+1)-th probabilities lie
+    ``ROUTER_FLIP_GAP`` or more apart."""
+    if len(kernel_calls) != len(plain_calls):
+        raise AssertionError(f"{label}: {len(kernel_calls)} router calls in "
+                             f"the kernel run, {len(plain_calls)} in the "
+                             "plain run")
+    for i, ((gk, gap), (gp, _)) in enumerate(zip(kernel_calls,
+                                                 plain_calls)):
+        diff = (gk != gp).any(-1)
+        if not bool(diff.any()):
+            continue
+        toks = diff.nonzero()[:, 0]
+        flip = dict(call=i, tokens=int(toks.numel()),
+                    max_gap=float(gap[toks].max()),
+                    slots=[(int(t), gk[t].tolist(), gp[t].tolist(),
+                            float(gap[t])) for t in toks[:8]])
+        log(f"{label}: router call {i} (of {len(kernel_calls)}) picks "
+            f"other experts for {flip['tokens']} token(s) in the kernel and "
+            f"the plain run: (token, kernel experts, plain experts, k-th - "
+            f"(k+1)-th probability) {flip['slots']}")
+        if flip["max_gap"] >= ROUTER_FLIP_GAP:
+            raise AssertionError(f"{label}: a top-k choice flipped at a "
+                                 f"probability gap {flip['max_gap']:.3e} >= "
+                                 f"{ROUTER_FLIP_GAP}")
+        return flip
+    return None
+
+
+def plain_attention_check(cfg, params, toks, gen0, *, cap: int, pos: int,
+                          label: str) -> dict:
+    """The first group's prefill and first decode step with the flash
+    kernel and with plain attention (both decode the kernel run's first
+    token): logits within ``LOGITS_TOL`` and argmax tokens identical, under
+    the router rule for MoE; the kernel run's first generated tokens must
+    equal the engine's ``gen0``."""
+    runs, routes = {}, {}
+    for name, fn in (("kernel", fa.flash_attention),
+                     ("plain", fa.flash_attention_plain)):
+        set_attend(params, fn)
+        rec = RouterRecord()
+        moe_ep._route = rec
+        try:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            lg0, cache = registry.prefill(cfg, params, {"tokens": toks},
+                                          cache_dtype=torch.float32, cap=cap)
+            torch.cuda.synchronize()
+            pre_ms = (time.perf_counter() - t) * 1e3
+            # teacher-forced: both runs decode the kernel run's first token
+            nxt = (runs["kernel"][0] if runs else lg0[:, -1]).argmax(-1)
+            lg1, _ = registry.decode_step(cfg, params, cache,
+                                          nxt[:, None].to(torch.int32), pos)
+        finally:
+            moe_ep._route = rec.route
+        runs[name] = (lg0[:, -1], lg1[:, -1], pre_ms)
+        routes[name] = rec.calls
+        del cache
+    set_attend(params, fa.flash_attention)
+    (k0, k1, prefill_ms), (p0, p1, plain_ms) = runs["kernel"], runs["plain"]
+    # the engine feeds the prefill's argmax to the first decode step and
+    # records what that step picks: its first generated token
+    engine_tokens = k1.argmax(-1).tolist()
+    if engine_tokens != gen0:
+        raise AssertionError(f"{label}: the kernel run's first tokens "
+                             f"{engine_tokens} are not the engine's {gen0}")
+    flip = router_flip(routes["kernel"], routes["plain"], label)
+    err = float(max((k0 - p0).abs().max(), (k1 - p1).abs().max()))
+    if flip is None:
+        close(k0, p0, LOGITS_TOL)
+        close(k1, p1, LOGITS_TOL)
+        if not (bool((k0.argmax(-1) == p0.argmax(-1)).all()) and
+                bool((k1.argmax(-1) == p1.argmax(-1)).all())):
+            raise AssertionError(f"{label}: argmax tokens differ from the "
+                                 "plain-attention run")
+        log(f"{label} logits: the first group's prefill and first decode "
+            f"step against plain attention: max |diff| {err:.3e} "
+            f"(tolerance {LOGITS_TOL}), argmax tokens identical and equal "
+            f"to the engine's {engine_tokens}; prefill wall "
+            f"{prefill_ms:.1f} ms (plain attention {plain_ms:.1f} ms)")
+    else:
+        log(f"{label} logits: router discontinuity at call {flip['call']} "
+            f"(gap {flip['max_gap']:.3e} < {ROUTER_FLIP_GAP}); the model "
+            f"check falls back to the per-layer attention check; logits max "
+            f"|diff| {err:.3e} (not held to {LOGITS_TOL}); the kernel run's "
+            f"tokens equal the engine's {engine_tokens}")
+    return dict(logits_max_abs_diff=err, router_flip=flip,
+                router_calls=len(routes["kernel"]), prefill_ms=prefill_ms,
+                plain_prefill_ms=plain_ms)
+
+
+def serve_family(dev, cfg, *, batch: int, prompt: int, gen: int,
+                 requests: int, label: str):
+    """Make ``cfg`` on the card from the seed and serve it through
+    ``ServeEngine(fused_egress=True)`` with the serving CLI's sequence,
+    each attention layer's first prefill and decode and every fabric
+    launch held against the plain version.  Returns (params, engine, demo,
+    facts)."""
     t0 = time.perf_counter()
     params = registry.init_params(
         cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in params.parameters())
-    log(f"main serve: {SERVE_ARCH} at full width (f32): {cfg.n_layers} "
-        f"layers, d {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, "
-        f"dh {cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}; "
+    attn = "" if cfg.family == "ssm" else (
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads, dh {cfg.head_dim}, d_ff "
+        f"{cfg.d_ff}, ")
+    log(f"{label}: {cfg.arch_id} at full width (f32): {cfg.n_layers} "
+        f"layers, d {cfg.d_model}, {attn}vocab {cfg.vocab}; "
         f"{n_params / 1e9:.3f} B parameters made in {init_s:.2f} s")
-    checks = [AttendCheck() for _ in params.layers]
-    for layer, chk in zip(params.layers, checks):
-        layer.attn.attend = chk
-    engine = ServeEngine(cfg, params, batch=SERVE_BATCH,
-                         cap=SERVE_PROMPT + SERVE_GEN, fused_egress=True,
-                         device=dev)
-
+    checks = check_attention(params)
+    engine = ServeEngine(cfg, params, batch=batch, cap=prompt + gen,
+                         fused_egress=True, device=dev)
     fabric_check = FabricCheck()
     fe.fabric_egress = fabric_check    # ShardedFabric.step_egress's kernel
     reset_launches()
     try:
-        demo = run_demo(engine, requests=SERVE_REQUESTS,
-                        prompt_len=SERVE_PROMPT, gen=SERVE_GEN, seed=SEED,
-                        log=lambda m: log(f"main serve: {m}"))
+        demo = run_demo(engine, requests=requests, prompt_len=prompt,
+                        gen=gen, seed=SEED, log=lambda m: log(f"{label}: {m}"))
         torch.cuda.synchronize()
         counts = dict(launches)
     finally:
         fe.fabric_egress = fabric_check.kernel
-    log(f"main serve path launches: {counts}")
-    n_checked = len(fabric_check.launches)
-    if n_checked != counts["fabric_egress"]:
-        raise AssertionError(f"{n_checked} recorded fabric calls, "
+    log(f"{label} path launches: {counts}")
+    n = len(fabric_check.launches)
+    if n != counts["fabric_egress"] or n == 0:
+        raise AssertionError(f"{label}: {n} recorded fabric calls, "
                              f"{counts['fabric_egress']} launches")
-    log(f"main serve: {n_checked} fabric launches held against the plain "
-        f"version on their own inputs after the run: 0 mismatching words "
-        f"and fault codes over {fabric_check.check()} words")
-    for name in ("flash_attention", "fabric_egress"):
-        if counts[name] == 0:
-            raise AssertionError(f"{name} never launched on the serving "
-                                 "path")
-    flash_err = {kind: max(c.err[kind] for c in checks)
-                 for kind in ("prefill", "decode")}
-    log(f"main serve: every layer's first prefill and first decode "
-        f"attention held against the plain version on its own q/k/v: max "
-        f"|diff| {flash_err}")
+    log(f"{label}: {n} fabric launches held against the plain version on "
+        f"their own inputs after the run: 0 mismatching words and fault "
+        f"codes over {fabric_check.check()} words")
+    flash_err = attend_errors(checks)
+    if checks:
+        if counts["flash_attention"] == 0:
+            raise AssertionError(f"flash_attention never launched on the "
+                                 f"{label} path")
+        log(f"{label}: every attention layer's first prefill and first "
+            f"decode held against the plain version on its own q/k/v: max "
+            f"|diff| {flash_err}")
     set_attend(params, fa.flash_attention)
+    return params, engine, demo, dict(
+        arch=cfg.arch_id, layers=cfg.n_layers, params=n_params,
+        init_s=init_s, launches=counts, flash_vs_plain=flash_err,
+        continuous_s=demo["continuous_s"],
+        tokens_per_s_continuous=demo["tokens_per_s"],
+        outcomes={k: demo[k] for k in ("continuous", "revoked",
+                                       "coresident", "evicted",
+                                       "readmitted", "replacement")})
 
-    # one steady decode step of tenant-b: launches, wall, device busy share
-    rng = np.random.default_rng(SEED + 4)
-    prompts = [rng.integers(3, cfg.vocab - 1, SERVE_PROMPT)
-               for _ in range(SERVE_BATCH)]
+
+def first_group(demo, batch: int, dev):
+    """The first group of tenant-a: its prompts as a token tensor and the
+    first token the engine generated for each."""
+    done = demo["tenants"]["tenant-a"].done[:batch]
+    toks = torch.from_numpy(np.stack([p for p, _ in done])
+                            .astype(np.int32)).to(dev)
+    return toks, [g[0] for _, g in done]
+
+
+def decode_step_profile(engine, tenant: str, gen: int, prompts) -> dict:
+    """One steady decode step of ``tenant``: launches, wall times, device
+    busy time, and the device time by op (the flash and fabric kernels by
+    symbol, the rest by the aten op that launched it, self time)."""
     for p in prompts:
-        engine.submit("tenant-b", p)
-    engine.step(gen=SERVE_GEN, only="tenant-b")       # prefill + decode 1
+        engine.submit(tenant, p)
+    engine.step(gen=gen, only=tenant)                 # prefill + decode 1
     reset_launches()
-    engine.step(gen=SERVE_GEN, only="tenant-b")
+    engine.step(gen=gen, only=tenant)
     torch.cuda.synchronize()
     per_step = {k: n for k, n in launches.items() if n}
-    log(f"main serve: launches in one decode step of one tenant: "
-        f"{per_step}")
-    if per_step.get("flash_attention") != cfg.n_layers or \
-            per_step.get("fabric_egress") != 1:
-        raise AssertionError(f"expected {cfg.n_layers} flash and 1 fabric "
-                             f"launch per decode step, got {per_step}")
     step_ms = []
     for _ in range(5):
         torch.cuda.synchronize()
         t = time.perf_counter()
-        engine.step(gen=SERVE_GEN, only="tenant-b")
+        engine.step(gen=gen, only=tenant)
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t) * 1e3)
+    reps = 3
     with torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(3):
-            engine.step(gen=SERVE_GEN, only="tenant-b")
+        for _ in range(reps):
+            engine.step(gen=gen, only=tenant)
         torch.cuda.synchronize()
-    device_ops = sorted(((e.key, _device_us(e) / 3 / 1e3)
-                         for e in prof.key_averages() if _device_us(e) > 0),
+    events = prof.key_averages()
+    device_ops = sorted(((e.key, _device_us(e) / reps / 1e3)
+                         for e in events if _device_us(e) > 0),
                         key=lambda kv: -kv[1])
     device_ms = sum(ms for _, ms in device_ops)
-    decode_ms = float(np.median(step_ms))
-    flash_ms = sum(ms for k, ms in device_ops if "flash_" in k)
-    log(f"main serve decode step (batch {SERVE_BATCH}, one tenant): wall "
-        f"ms {[round(x, 3) for x in step_ms]} (median {decode_ms:.3f}, "
-        f"{SERVE_BATCH * 1e3 / decode_ms:.1f} tok/s); device busy "
-        f"{device_ms:.3f} ms ({100 * device_ms / decode_ms:.1f} %), flash "
-        f"{flash_ms:.3f} ms; top device ops "
-        f"{[(k[:48], round(v, 4)) for k, v in device_ops[:8]]}")
+    by_op = {"attention (flash kernel)": sum(
+        ms for k, ms in device_ops if "flash_" in k),
+        "fabric egress kernel": sum(
+            ms for k, ms in device_ops if "fabric_egress_kernel" in k)}
+    self_ms = {e.key: float(getattr(e, "self_device_time_total", None)
+                            or getattr(e, "self_cuda_time_total", 0.0))
+               / reps / 1e3
+               for e in events if e.key.startswith("aten::")}
+    for cat, names in OP_CATEGORIES.items():
+        by_op[cat] = sum(self_ms.get(n, 0.0) for n in names)
+    named = {n for names in OP_CATEGORIES.values() for n in names}
+    by_op["elementwise and other aten ops"] = sum(
+        ms for k, ms in self_ms.items() if k not in named)
+    by_op["unattributed"] = device_ms - sum(by_op.values())
+    return dict(launches_per_decode_step=per_step, decode_step_ms=step_ms,
+                decode_step_median_ms=float(np.median(step_ms)),
+                decode_device_ms=device_ms, decode_device_by_op=by_op,
+                decode_flash_ms=by_op["attention (flash kernel)"],
+                decode_device_ops=device_ops[:10])
 
-    # the first group's prefill and first decode step, kernel against plain
-    group = [p for p, _ in demo["tenants"]["tenant-a"].done[:SERVE_BATCH]]
-    # the engine feeds the prefill's argmax to the first decode step and
-    # records what that step picks: its first generated token
-    gen0 = [g[0] for _, g in demo["tenants"]["tenant-a"].done[:SERVE_BATCH]]
-    toks = torch.from_numpy(np.stack(group).astype(np.int32)).to(dev)
-    cap = SERVE_PROMPT + SERVE_GEN
-    runs = {}
-    for name, fn in (("kernel", fa.flash_attention),
-                     ("plain", fa.flash_attention_plain)):
-        set_attend(params, fn)
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        lg0, cache = registry.prefill(cfg, params, {"tokens": toks},
-                                      cache_dtype=torch.float32, cap=cap)
-        torch.cuda.synchronize()
-        pre_ms = (time.perf_counter() - t) * 1e3
-        # teacher-forced: both runs decode the kernel run's first token
-        nxt = (runs["kernel"][0] if runs else lg0[:, -1]).argmax(-1)[:, None]
-        lg1, _ = registry.decode_step(cfg, params, cache,
-                                      nxt.to(torch.int32), SERVE_PROMPT)
-        runs[name] = (lg0[:, -1], lg1[:, -1], pre_ms)
-        del cache
-    set_attend(params, fa.flash_attention)
-    (k0, k1, prefill_ms), (p0, p1, plain_prefill_ms) = \
-        runs["kernel"], runs["plain"]
-    logit_err = max(close(k0, p0, LOGITS_TOL), close(k1, p1, LOGITS_TOL))
-    same = bool((k0.argmax(-1) == p0.argmax(-1)).all()) and \
-        bool((k1.argmax(-1) == p1.argmax(-1)).all())
-    engine_tokens = k1.argmax(-1).tolist()
-    if not same or engine_tokens != gen0:
-        raise AssertionError(f"argmax tokens differ: kernel {engine_tokens}"
-                             f", engine {gen0}, plain agrees: {same}")
-    log(f"main serve logits: the first group's prefill and first decode "
-        f"step against plain attention: max |diff| {logit_err:.3e} "
-        f"(tolerance {LOGITS_TOL}), argmax tokens identical and equal to "
-        f"the engine's {gen0}; prefill wall {prefill_ms:.1f} ms "
-        f"(plain attention {plain_prefill_ms:.1f} ms)")
-    return dict(arch=SERVE_ARCH, params=n_params, init_s=init_s,
-                launches=counts, launches_per_decode_step=per_step,
-                tokens_per_s_continuous=demo["tokens_per_s"],
-                continuous_s=demo["continuous_s"],
-                decode_step_ms=step_ms, decode_step_median_ms=decode_ms,
-                decode_device_ms=device_ms, decode_flash_ms=flash_ms,
-                decode_device_ops=device_ops[:10], prefill_ms=prefill_ms,
-                flash_vs_plain=flash_err, logits_max_abs_diff=logit_err,
-                outcomes={k: demo[k] for k in (
-                    "continuous", "revoked", "coresident", "evicted",
-                    "readmitted", "replacement")})
 
+def serve_main_path(dev, arch: str, label: str) -> dict:
+    """A decoder LM (qwen3-4b, olmoe-1b-7b) at full width and depth, f32
+    (reference defect 5), through the serving CLI's sequence
+    (`serve_family`); then one decode step's launches, wall time, device
+    busy time and device time by op (for MoE beside the expert-weight
+    floor: every expert read once a step), and the first group's logits
+    against a plain-attention run."""
+    t0 = time.perf_counter()
+    cfg = replace(ARCHS[arch], param_dtype="float32")
+    params, engine, demo, out = serve_family(
+        dev, cfg, batch=SERVE_BATCH, prompt=SERVE_PROMPT, gen=SERVE_GEN,
+        requests=SERVE_REQUESTS, label=label)
+    for name in ("flash_attention", "fabric_egress"):
+        if out["launches"][name] == 0:
+            raise AssertionError(f"{name} never launched on the {label} "
+                                 "path")
+    rng = np.random.default_rng(SEED + 4)
+    prof = decode_step_profile(
+        engine, "tenant-b", SERVE_GEN,
+        [rng.integers(3, cfg.vocab - 1, SERVE_PROMPT)
+         for _ in range(SERVE_BATCH)])
+    per_step = prof["launches_per_decode_step"]
+    n_attn = len(attention_modules(params))
+    log(f"{label}: launches in one decode step of one tenant: {per_step}")
+    if per_step.get("flash_attention") != n_attn or \
+            per_step.get("fabric_egress") != 1:
+        raise AssertionError(f"expected {n_attn} flash and 1 fabric launch "
+                             f"per decode step, got {per_step}")
+    floor = {}
+    if cfg.family == "moe":
+        floor["expert_bytes"] = sum(
+            getattr(u.moe, w).numel() * 4 for u in params.layers
+            for w in ("w_gate", "w_up", "w_down"))
+        floor["expert_floor_ms"] = \
+            floor["expert_bytes"] / PEAK_BYTES_PER_S * 1e3
+    decode_ms = prof["decode_step_median_ms"]
+    by_op = {k: round(v, 3) for k, v in prof["decode_device_by_op"].items()}
+    log(f"{label} decode step (batch {SERVE_BATCH}, one tenant): wall ms "
+        f"{[round(x, 3) for x in prof['decode_step_ms']]} (median "
+        f"{decode_ms:.3f}, {SERVE_BATCH * 1e3 / decode_ms:.1f} tok/s); "
+        f"device busy {prof['decode_device_ms']:.3f} ms "
+        f"({100 * prof['decode_device_ms'] / decode_ms:.1f} %), flash "
+        f"{prof['decode_flash_ms']:.3f} ms"
+        + (f"; expert-weight floor {floor['expert_bytes'] / 1e9:.2f} GB / "
+           f"{PEAK_BYTES_PER_S:.3e} B/s = {floor['expert_floor_ms']:.3f} ms"
+           if floor else "")
+        + f"; device ms by op {by_op}; top device ops "
+        f"{[(k[:48], round(v, 4)) for k, v in prof['decode_device_ops'][:8]]}")
+    toks, gen0 = first_group(demo, SERVE_BATCH, dev)
+    check = plain_attention_check(cfg, params, toks, gen0,
+                                  cap=SERVE_PROMPT + SERVE_GEN,
+                                  pos=SERVE_PROMPT, label=label)
+    tok_s = SERVE_BATCH * SERVE_PROMPT * 1e3 / check["prefill_ms"]
+    log(f"{label} prefill: {SERVE_BATCH} x {SERVE_PROMPT} tokens in "
+        f"{check['prefill_ms']:.1f} ms ({tok_s:.0f} tokens/s)")
+    del params, engine, demo
+    free_card()
+    wall = time.perf_counter() - t0
+    log(f"{label}: phase wall {wall:.3f} s; cut: f32 parameters (reference "
+        f"defect 5)")
+    return dict(out, **prof, **check, **floor, prefill_tokens_per_s=tok_s,
+                wall_s=wall, cut="f32 parameters (reference defect 5)")
 
 # -- the fault-tolerance and clocked-timing slice ---------------------------
 
@@ -1466,6 +1680,198 @@ def timing_path(dev) -> dict:
                 bound_ms=b_ms, bound_by=b_by, wall_s=wall)
 
 
+# -- the remaining serving families ------------------------------------------
+
+# Main path 5: olmoe-1b-7b at full width and depth (f32: reference defect 5)
+# through the serving sequence of main path 2, at its batch, prompt, gen and
+# request count.
+MOE_ARCH = "olmoe-1b-7b"
+# The family phase: falcon-mamba at full width with 8 of its 64 layers,
+# zamba2 at full width and depth, served at batch 4, prompt 256, 16
+# generated tokens, 4 requests; seamless at full width and depth through
+# prefill/decode with 64 frames and a 256-token prompt.
+FAMILY_BATCH, FAMILY_PROMPT, FAMILY_GEN, FAMILY_REQUESTS = 4, 256, 16, 4
+FAMILY_LAYERS = {"falcon-mamba-7b": 8}
+SEAMLESS_FRAMES = 64
+SSM_CPU_TOL = 1e-3          # falcon-mamba on the card against a CPU run
+# The shared-experts flow at olmoe's full width with 2 of its 16 layers:
+# the whole model would hold its experts three times over (pool, model and
+# the stacks rebuilt from each tenant's fetches).
+SHARED_EXPERT_LAYERS = 2
+
+def ssm_cpu_check(cfg, params, toks, gen0, label: str) -> dict:
+    """falcon-mamba runs no kernel: the first group's prefill and first
+    decode step on the card against a ``device="cpu"`` run of the port on
+    the same weights, within ``SSM_CPU_TOL``."""
+    outs = []
+    for model, dev in ((params, toks.device), (None, torch.device("cpu"))):
+        if model is None:
+            model = copy.deepcopy(params).to(dev)
+        t = time.perf_counter()
+        lg0, cache = registry.prefill(cfg, model, {"tokens": toks.to(dev)},
+                                      cache_dtype=torch.float32)
+        nxt = (outs[0][0].to(dev) if outs else lg0[:, -1]).argmax(-1)
+        lg1, _ = registry.decode_step(cfg, model, cache,
+                                      nxt[:, None].to(torch.int32),
+                                      toks.shape[1])
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        outs.append((lg0[:, -1].cpu(), lg1[:, -1].cpu(),
+                     (time.perf_counter() - t) * 1e3))
+    (k0, k1, card_ms), (c0, c1, cpu_ms) = outs
+    err = max(close(k0, c0, SSM_CPU_TOL), close(k1, c1, SSM_CPU_TOL))
+    if k1.argmax(-1).tolist() != gen0:
+        raise AssertionError(f"{label}: first tokens {k1.argmax(-1)} are "
+                             f"not the engine's {gen0}")
+    log(f"{label} logits: the first group's prefill and first decode step "
+        f"on the card against a device='cpu' run on the same weights: max "
+        f"|diff| {err:.3e} (tolerance {SSM_CPU_TOL}); card {card_ms:.1f} ms,"
+        f" CPU {cpu_ms:.1f} ms")
+    return dict(logits_max_abs_diff=err, card_ms=card_ms, cpu_ms=cpu_ms)
+
+
+def seamless_path(dev) -> dict:
+    """seamless-m4t-medium at full width and depth through
+    ``registry.prefill``/``decode_step`` with frames (the engine has none:
+    reference defect 6): greedy decode on the kernel, every attention
+    layer's first prefill and decode held against the plain version, then
+    the whole run teacher-forced with plain attention."""
+    t0 = time.perf_counter()
+    cfg = replace(ARCHS["seamless-m4t-medium"], param_dtype="float32")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = registry.init_params(cfg, gen, dev)
+    frames = torch.randn((FAMILY_BATCH, SEAMLESS_FRAMES, cfg.d_model),
+                         generator=gen, device=dev)
+    toks = torch.randint(3, cfg.vocab - 1, (FAMILY_BATCH, FAMILY_PROMPT),
+                         generator=gen, device=dev, dtype=torch.int32)
+    cap = FAMILY_PROMPT + FAMILY_GEN
+    runs = {}
+    for name in ("kernel", "plain"):
+        if name == "kernel":
+            checks = check_attention(params)
+            reset_launches()
+        else:
+            set_attend(params, fa.flash_attention_plain)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        lg, cache = registry.prefill(cfg, params, {"tokens": toks,
+                                                   "frames": frames},
+                                     cache_dtype=torch.float32, cap=cap)
+        torch.cuda.synchronize()
+        pre_ms = (time.perf_counter() - t) * 1e3
+        logits, step_ms = [lg[:, -1]], []
+        for i in range(FAMILY_GEN):
+            nxt = (runs["kernel"][0][i] if runs else logits[-1]).argmax(-1)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            lg, cache = registry.decode_step(cfg, params, cache,
+                                             nxt[:, None].to(torch.int32),
+                                             FAMILY_PROMPT + i)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t) * 1e3)
+            logits.append(lg[:, -1])
+        if name == "kernel":
+            counts = dict(launches)
+        runs[name] = (logits, pre_ms, step_ms)
+        del cache
+    set_attend(params, fa.flash_attention)
+    if counts["flash_attention"] == 0:
+        raise AssertionError("flash_attention never launched on the "
+                             "seamless path")
+    err = max(close(k, p, LOGITS_TOL)
+              for k, p in zip(runs["kernel"][0], runs["plain"][0]))
+    if not all(bool((k.argmax(-1) == p.argmax(-1)).all())
+               for k, p in zip(runs["kernel"][0], runs["plain"][0])):
+        raise AssertionError("seamless: argmax tokens differ from the "
+                             "plain-attention run")
+    flash_err = attend_errors(checks)
+    _, pre_ms, step_ms = runs["kernel"]
+    wall = time.perf_counter() - t0
+    log(f"family seamless: {cfg.arch_id} at full width (f32): "
+        f"{cfg.n_enc_layers} + {cfg.n_layers} layers, d {cfg.d_model}, "
+        f"vocab {cfg.vocab}; frames {tuple(frames.shape)}, prompt "
+        f"{tuple(toks.shape)}, {FAMILY_GEN} greedy steps; launches {counts};"
+        f" every attention layer's first prefill and decode against the "
+        f"plain version: max |diff| {flash_err}; logits of the prefill and "
+        f"every step against plain attention: max |diff| {err:.3e}, argmax "
+        f"identical; prefill wall {pre_ms:.1f} ms, decode step wall median "
+        f"{float(np.median(step_ms)):.3f} ms; phase wall {wall:.3f} s")
+    del params
+    free_card()
+    return dict(arch=cfg.arch_id, launches=counts, flash_vs_plain=flash_err,
+                logits_max_abs_diff=err, prefill_ms=pre_ms,
+                decode_step_ms=step_ms, wall_s=wall)
+
+
+def family_paths(dev) -> dict:
+    """The family phase: falcon-mamba (8 of 64 layers) and zamba2 served,
+    seamless through prefill/decode with frames; each path's launch counts
+    zeroed before it and read after it."""
+    out = {}
+    for arch in ("falcon-mamba-7b", "zamba2-1.2b"):
+        t0 = time.perf_counter()
+        full = ARCHS[arch]
+        cfg = replace(full, param_dtype="float32",
+                      n_layers=FAMILY_LAYERS.get(arch, full.n_layers))
+        label = f"family {arch}"
+        params, engine, demo, facts = serve_family(
+            dev, cfg, batch=FAMILY_BATCH, prompt=FAMILY_PROMPT,
+            gen=FAMILY_GEN, requests=FAMILY_REQUESTS, label=label)
+        toks, gen0 = first_group(demo, FAMILY_BATCH, dev)
+        if cfg.family == "ssm":
+            if facts["launches"]["flash_attention"]:
+                raise AssertionError("falcon-mamba launched flash attention")
+            check = ssm_cpu_check(cfg, params, toks, gen0, label)
+        else:
+            check = plain_attention_check(
+                cfg, params, toks, gen0, cap=FAMILY_PROMPT + FAMILY_GEN,
+                pos=FAMILY_PROMPT, label=label)
+        del params, engine, demo
+        free_card()
+        wall = time.perf_counter() - t0
+        log(f"{label}: phase wall {wall:.3f} s")
+        cut = "f32 parameters"
+        if cfg.n_layers != full.n_layers:
+            cut = f"{cfg.n_layers} of {full.n_layers} layers; {cut}"
+        out[arch] = dict(facts, **check, wall_s=wall, cut=cut)
+    out["seamless-m4t-medium"] = seamless_path(dev)
+    return out
+
+
+def shared_experts_path(dev) -> dict:
+    """examples/torch_serve_shared_experts.py at olmoe's full width with
+    ``SHARED_EXPERT_LAYERS`` layers: the example raises unless A's fetches
+    are all denied after its revocation, B's tokens do not change and B's
+    denied rows come back zero."""
+    t0 = time.perf_counter()
+    path = ROOT / "examples" / "torch_serve_shared_experts.py"
+    spec = importlib.util.spec_from_file_location("torch_shared_experts",
+                                                  path)
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    cfg = replace(ARCHS[MOE_ARCH], param_dtype="float32",
+                  n_layers=SHARED_EXPERT_LAYERS)
+    reset_launches()
+    res = example.run(cfg, device=dev, seed=SEED,
+                      log=lambda m: log(f"shared experts: {m}"))
+    torch.cuda.synchronize()
+    counts = dict(launches)
+    if counts["flash_attention"] != 4 * cfg.n_layers:
+        raise AssertionError(f"shared experts: {counts['flash_attention']} "
+                             f"flash launches, not {4 * cfg.n_layers}")
+    free_card()
+    wall = time.perf_counter() - t0
+    log(f"shared experts: olmoe full width, {cfg.n_layers} layers: A denied "
+        f"{res['a_before'][1]} fetches before and {res['a_revoked'][1]} of "
+        f"{res['fetches_per_tenant']} after its revocation; B denied "
+        f"{res['b_before'][1]} (zero-filled), tokens {res['b_before'][0]} "
+        f"before and {res['b_after'][0]} after; launches {counts}; phase "
+        f"wall {wall:.3f} s")
+    return dict(launches=counts, wall_s=wall,
+                **{k: res[k] for k in ("a_before", "b_before", "a_revoked",
+                                       "b_after", "fetches_per_tenant")})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1516,10 +1922,15 @@ def main() -> int:
             raise AssertionError(f"{name} never launched on the main path")
     # main path 2: serving; main paths 3 and 4: the chaos storm and the
     # clocked timing path (each resets and reads the counts inside)
-    serve = serve_main_path(dev)
+    serve = serve_main_path(dev, SERVE_ARCH, "main serve")
     chaos = chaos_path(dev)
     timing = timing_path(dev)
-    for path in (serve, chaos, timing):
+    # main path 5: MoE serving; then the family and shared-experts phases
+    # (each resets and reads the counts inside)
+    moe = serve_main_path(dev, MOE_ARCH, "main moe")
+    families = family_paths(dev)
+    shared = shared_experts_path(dev)
+    for path in (serve, chaos, timing, moe, *families.values(), shared):
         for name, n in path["launches"].items():
             counts[name] += n
     for name, path in (("chaos", chaos), ("timing", timing)):
@@ -1529,9 +1940,15 @@ def main() -> int:
     log(f"slice phases on {smi}: chaos storm wall {chaos['wall_s']:.3f} s "
         f"({len(CHAOS_SEEDS)} seeds), timing path wall "
         f"{timing['wall_s']:.3f} s")
+    log(f"family phases on {smi}: moe serve wall {moe['wall_s']:.3f} s; "
+        + "; ".join(f"{a} wall {p['wall_s']:.3f} s"
+                    for a, p in families.items())
+        + f"; shared experts wall {shared['wall_s']:.3f} s")
 
     line = {"kernels": [], "main_path": main, "serve_path": serve,
             "chaos_path": chaos, "timing_path": timing,
+            "moe_serve_path": moe, "family_paths": families,
+            "shared_experts_path": shared,
             "card": smi, "peaks": {"bytes_per_s": PEAK_BYTES_PER_S,
                                    "int32_ops_per_s": ops_per_s,
                                    "f32_flops": PEAK_F32_FLOPS,

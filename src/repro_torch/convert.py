@@ -5,7 +5,9 @@ shard and fabric views, the permission cache; the serving path adds the
 decoder LM's parameters and its KV cache.  These functions turn either,
 given as numpy arrays (any object with the named array attributes: a JAX
 NamedTuple or pytree of arrays works, since ``np.asarray`` reads it), into
-the port's tensors and modules, and back again.  u32 words keep their bit
+the port's tensors and modules, and back again.  Model parameters and
+serving caches of every family cross the same way (`params_from_numpy`,
+`cache_from_numpy`, `cache_to_numpy`).  u32 words keep their bit
 patterns: ``uint32`` in numpy, int32 in torch.
 """
 from __future__ import annotations
@@ -21,7 +23,8 @@ from .kernels import resolve_device
 from .kernels.permcheck import ShardView
 from .layers.attention import KVCache
 from .layers.common import param
-from .models import lm
+from .layers.mamba import Mamba2Cache, MambaCache
+from .models import encdec, hybrid, lm, ssm
 
 
 def u32_to_numpy(t) -> np.ndarray:
@@ -98,7 +101,7 @@ def perm_cache_to_numpy(c: PermCache) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# the serving path: decoder-LM parameters and the KV cache
+# the serving path: model parameters and serving caches of every family
 # ---------------------------------------------------------------------------
 
 def _float_tensor(a, dtype, device) -> torch.Tensor:
@@ -112,42 +115,145 @@ def _float_tensor(a, dtype, device) -> torch.Tensor:
     return t.to(device=device, dtype=dtype)
 
 
-def lm_params_from_numpy(cfg: ArchConfig, tree, *, device=None
-                         ) -> lm.DenseLM:
-    """The reference's dense-LM parameter pytree (``embed.tok``, the
-    stacked ``units`` [n_layers, ...], ``final_norm``, ``head.w``), as
-    numpy arrays, -> the port's `DenseLM` with one module per layer."""
-    dev = resolve_device(device)
-    dt = cfg.pdtype
-    model = lm.DenseLM(cfg, None, "meta")
-    put = lambda a: param(_float_tensor(a, dt, dev))
-    model.tok = put(tree["embed"]["tok"])
-    model.final_norm = put(tree["final_norm"])
+def _load(module, tree: dict, index, device) -> None:
+    """Copy a reference subtree into ``module``: each leaf array, indexed
+    by ``index`` (its layer in the stack), becomes the parameter of the
+    same name, in that parameter's dtype; each sub-dict fills the
+    submodule of its name."""
+    for name, sub in tree.items():
+        if isinstance(sub, dict):
+            _load(getattr(module, name), sub, index, device)
+        else:
+            dt = getattr(module, name).dtype
+            setattr(module, name, param(_float_tensor(np.asarray(sub)[index],
+                                                      dt, device)))
+
+
+def _load_ends(model, cfg: ArchConfig, tree, device) -> None:
+    """The token table, the final norm and the untied head."""
+    ends = {"tok": tree["embed"]["tok"], "final_norm": tree["final_norm"]}
     if not cfg.tie_embeddings:
-        model.head_w = put(tree["head"]["w"])
-    units = tree["units"]
-    for i, layer in enumerate(model.layers):
-        layer.ln1 = put(units["ln1"][i])
-        layer.ln2 = put(units["ln2"][i])
-        for name, arr in units["attn"].items():
-            setattr(layer.attn, name, put(arr[i]))
-        for name, arr in units["mlp"].items():
-            setattr(layer.mlp, name, put(arr[i]))
+        ends["head_w"] = tree["head"]["w"]
+    _load(model, ends, (), device)
+
+
+def lm_params_from_numpy(cfg: ArchConfig, tree, *, device=None
+                         ) -> lm.DecoderLM:
+    """The reference's decoder-LM parameter pytree (dense, moe, vlm:
+    ``embed.tok``, the stacked ``units`` [n_units, ...] — a llama4 unit
+    holds ``dense`` and ``moe`` blocks —, ``final_norm``, ``head.w``), as
+    numpy arrays, -> the port's `DecoderLM` with one module per unit."""
+    dev = resolve_device(device)
+    model = lm.DecoderLM(cfg, None, "meta")
+    _load_ends(model, cfg, tree, dev)
+    for i, unit in enumerate(model.layers):
+        _load(unit, tree["units"], i, dev)
     return model
 
 
-def kv_cache_from_numpy(cache, *, device=None) -> list[KVCache]:
-    """A reference cache (``k``/``v`` stacked [n_layers, B, n_kv, cap,
-    dh]) -> the port's per-layer `KVCache` list."""
+def ssm_params_from_numpy(cfg: ArchConfig, tree, *, device=None
+                          ) -> ssm.MambaLM:
+    """The reference's falcon-mamba pytree (stacked ``blocks``) -> the
+    port's `MambaLM`."""
     dev = resolve_device(device)
-    k, v = np.asarray(cache.k), np.asarray(cache.v)
-    return [KVCache(_float_tensor(k[i], None, dev),
-                    _float_tensor(v[i], None, dev))
-            for i in range(k.shape[0])]
+    model = ssm.MambaLM(cfg, None, "meta")
+    _load_ends(model, cfg, tree, dev)
+    for i, block in enumerate(model.blocks):
+        _load(block, tree["blocks"], i, dev)
+    return model
 
 
-def kv_cache_to_numpy(cache: list[KVCache]) -> dict:
-    """The port's per-layer cache as stacked f32 numpy ``k`` and ``v``
-    [n_layers, B, n_kv, cap, dh]."""
-    return {f: torch.stack([getattr(c, f) for c in cache])
-            .to("cpu", torch.float32).numpy() for f in ("k", "v")}
+def hybrid_params_from_numpy(cfg: ArchConfig, tree, *, device=None
+                             ) -> hybrid.HybridLM:
+    """The reference's zamba2 pytree (``groups`` stacked [G, per group,
+    ...], the one ``shared_attn`` block, ``tail`` [tail, ...]) -> the
+    port's `HybridLM`."""
+    dev = resolve_device(device)
+    model = hybrid.HybridLM(cfg, None, "meta")
+    _load_ends(model, cfg, tree, dev)
+    for g, group in enumerate(model.groups):
+        for j, block in enumerate(group):
+            _load(block, tree["groups"], (g, j), dev)
+    _load(model.shared_attn, tree["shared_attn"], (), dev)
+    for i, block in enumerate(model.tail):
+        _load(block, tree["tail"], i, dev)
+    return model
+
+
+def encdec_params_from_numpy(cfg: ArchConfig, tree, *, device=None
+                             ) -> encdec.EncDecLM:
+    """The reference's seamless pytree (``enc_blocks``, ``enc_norm``,
+    ``dec_blocks``) -> the port's `EncDecLM`."""
+    dev = resolve_device(device)
+    model = encdec.EncDecLM(cfg, None, "meta")
+    _load_ends(model, cfg, tree, dev)
+    _load(model, {"enc_norm": tree["enc_norm"]}, (), dev)
+    for name in ("enc_blocks", "dec_blocks"):
+        for i, block in enumerate(getattr(model, name)):
+            _load(block, tree[name], i, dev)
+    return model
+
+
+def params_from_numpy(cfg: ArchConfig, tree, *, device=None):
+    """Any family's reference parameter pytree -> the port's model."""
+    fn = {"ssm": ssm_params_from_numpy, "hybrid": hybrid_params_from_numpy,
+          "encdec": encdec_params_from_numpy}.get(cfg.family,
+                                                  lm_params_from_numpy)
+    return fn(cfg, tree, device=device)
+
+
+def _split(cls, stacked, index, device):
+    """One layer's cache ``cls(...)`` out of the reference's stacked
+    NamedTuple, each field indexed by ``index``."""
+    return cls(*(_float_tensor(np.asarray(getattr(stacked, f))[index], None,
+                               device) for f in cls._fields))
+
+
+def cache_from_numpy(cfg: ArchConfig, cache, *, device=None):
+    """A reference serving cache (stacked per layer: `KVCache`,
+    ``{"dense", "moe"}`` of them for llama4, `MambaCache`, zamba2's
+    ``{"groups", "attn", "tail"}``, `EncDecCache`) -> the port's per-layer
+    cache of the same family."""
+    dev = resolve_device(device)
+    if cfg.family == "ssm":
+        return [_split(MambaCache, cache, i, dev)
+                for i in range(cfg.n_layers)]
+    if cfg.family == "hybrid":
+        g, bpg, tail = hybrid.group_layout(cfg)
+        out = {"groups": [[_split(Mamba2Cache, cache["groups"], (i, j), dev)
+                           for j in range(bpg)] for i in range(g)],
+               "attn": [_split(KVCache, cache["attn"], i, dev)
+                        for i in range(g)]}
+        if tail:
+            out["tail"] = [_split(Mamba2Cache, cache["tail"], i, dev)
+                           for i in range(tail)]
+        return out
+    if cfg.family == "encdec":
+        return encdec.EncDecCache(*(
+            [_split(KVCache, getattr(cache, f), i, dev)
+             for i in range(cfg.n_layers)] for f in ("self_kv", "cross_kv")))
+    if cfg.family == "moe" and cfg.moe_every == 2:
+        return [{part: _split(KVCache, cache[part], i, dev)
+                 for part in ("dense", "moe")}
+                for i in range(lm.n_units(cfg))]
+    return [_split(KVCache, cache, i, dev) for i in range(lm.n_units(cfg))]
+
+
+def _stacked(parts: list):
+    if isinstance(parts[0], dict):
+        return {k: _stacked([p[k] for p in parts]) for k in parts[0]}
+    return np.stack(parts)
+
+
+def cache_to_numpy(cache):
+    """The port's serving cache of any family as the reference's stacked
+    layout, in nested dicts of f32 numpy arrays (a NamedTuple becomes a
+    dict of its fields; a per-layer list becomes one array per field with
+    the layers first)."""
+    if isinstance(cache, torch.Tensor):
+        return cache.detach().to("cpu", torch.float32).numpy()
+    if hasattr(cache, "_fields"):
+        return {f: cache_to_numpy(getattr(cache, f)) for f in cache._fields}
+    if isinstance(cache, dict):
+        return {k: cache_to_numpy(v) for k, v in cache.items()}
+    return _stacked([cache_to_numpy(c) for c in cache])

@@ -25,7 +25,11 @@ serving-side integration end to end on the port's `ShardedFabric`:
     tenants keep serving.
 
 Decoding runs eager on the model in `repro_torch.models` (every attention
-through the flash kernel on the card).  Batching: every active tenant
+through the flash kernel on the card): dense, vlm, moe, ssm and hybrid
+serve, each with the cache its family's `registry.prefill` returns.  The
+encoder-decoder family needs frames to encode and the engine has none, so
+its first prefill raises a ValueError that says so (the reference crashes
+there).  Batching: every active tenant
 decodes one token per engine `step()`; finished groups retire and refill
 from the tenant's queue, and tenants can join or leave between steps.
 """

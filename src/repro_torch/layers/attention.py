@@ -5,6 +5,8 @@
   * sliding-window masks (gemma3 local layers)
   * standard RoPE or M-RoPE (qwen2-vl)
   * KV-cache prefill (bulk write) and decode (single-position update)
+  * cross attention over an encoder memory (seamless enc-dec), and the
+    encoder's bidirectional self attention as cross attention onto itself
 
 `Attention` is an ``nn.Module`` holding the reference's parameters under
 its names and layouts (``wq [d, H, dh]`` ... ``wo [H, dh, d]``).  Its
@@ -168,6 +170,41 @@ def _project_qkv(p, x, positions, *, theta, rotary_dim, mrope_sections):
             q = apply_rope(q, positions, theta=theta, rotary_dim=rotary_dim)
             k = apply_rope(k, positions, theta=theta, rotary_dim=rotary_dim)
     return q, k, v
+
+
+def project_cross_kv(p: Attention, memory) -> KVCache:
+    """The encoder memory's K/V for cross attention, head-major
+    [B, Hkv, T, dh] as a KV cache holds them (computed once at prefill)."""
+    b, t, d = memory.shape
+    m = memory.reshape(b * t, d)
+    k = (m @ p.wk.reshape(d, -1)).reshape(b, t, *p.wk.shape[1:])
+    v = (m @ p.wv.reshape(d, -1)).reshape(b, t, *p.wv.shape[1:])
+    if p.k_norm is not None:
+        k = rms_norm(p.k_norm, k)
+    return KVCache(k.transpose(1, 2).contiguous(),
+                   v.transpose(1, 2).contiguous())
+
+
+def cross_attention(p: Attention, x, memory, positions=None, *,
+                    theta: float = 10000.0, kv_cache: KVCache | None = None):
+    """Non-causal attention of ``x`` [B, S, d] over the encoder memory: its
+    K/V projected here from ``memory`` [B, T, d], or taken from
+    ``kv_cache`` (`project_cross_kv`'s output).  No RoPE (``positions``
+    and ``theta`` are the reference's signature).  On the card through the
+    layer's ``attend`` hook (the flash kernel, ``causal=False``), on the
+    CPU through the reference's unmasked `_sdpa`."""
+    b, s, d = x.shape
+    q = (x.reshape(b * s, d) @ p.wq.reshape(d, -1)).reshape(
+        b, s, *p.wq.shape[1:])
+    if p.q_norm is not None:
+        q = rms_norm(p.q_norm, q)
+    kv = kv_cache if kv_cache is not None else project_cross_kv(p, memory)
+    if x.device.type == "cuda":
+        out = p.attend(q.transpose(1, 2), kv.k, kv.v, causal=False,
+                       window=-1).transpose(1, 2)
+    else:
+        out = _sdpa(q, kv.k.transpose(1, 2), kv.v.transpose(1, 2), None)
+    return out.reshape(b, s, -1) @ p.wo.reshape(-1, p.wo.shape[-1])
 
 
 def _sdpa(q, k, v, mask):

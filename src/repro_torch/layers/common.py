@@ -139,6 +139,13 @@ def unembed(tok, head_w, x, *, tied: bool):
     return x @ w.to(x.dtype)
 
 
+def final_logits(params, x, *, tied: bool):
+    """Logits of a model's last hidden states: its ``final_norm``, then
+    `unembed` through ``tok`` (tied) or ``head_w``."""
+    return unembed(params.tok, params.head_w, rms_norm(params.final_norm, x),
+                   tied=tied)
+
+
 def cross_entropy(logits, labels, *, ignore_id: int = -1):
     """Mean token cross-entropy in fp32; labels==ignore_id are masked."""
     logits = logits.to(torch.float32)

@@ -1,8 +1,8 @@
 """Model registry: family -> model module, and the serving entry points.
 
-The dense and vlm families run on `repro_torch.models.lm`; the moe family
-(same module in the reference) and the ssm, hybrid and encdec families
-raise `NotImplementedError` naming the slice that brings them.
+Every family of the reference is here: dense, moe and vlm on
+`repro_torch.models.lm`, ssm on `.ssm`, hybrid on `.hybrid` and encdec on
+`.encdec`.
 """
 from __future__ import annotations
 
@@ -11,27 +11,18 @@ from types import ModuleType
 import torch
 
 from ..configs.base import ArchConfig
-from . import lm
+from . import encdec, hybrid, lm, ssm
 
-_PENDING = {
-    "moe": "the moe family (layers/moe.py) comes with the port of the MoE "
-           "slice (ROADMAP Queue 1 item c)",
-    "ssm": "the ssm family (models/ssm.py, layers/mamba.py) comes with the "
-           "port of the remaining model families (ROADMAP Queue 1 item e)",
-    "hybrid": "the hybrid family (models/hybrid.py) comes with the port of "
-              "the remaining model families (ROADMAP Queue 1 item e)",
-    "encdec": "the encdec family (models/encdec.py, cross attention) comes "
-              "with the port of the remaining model families (ROADMAP "
-              "Queue 1 item e)",
+_FAMILY_MOD: dict[str, ModuleType] = {
+    "dense": lm, "moe": lm, "vlm": lm,
+    "ssm": ssm, "hybrid": hybrid, "encdec": encdec,
 }
 
 
 def model_module(cfg: ArchConfig) -> ModuleType:
-    if cfg.family in _PENDING:
-        raise NotImplementedError(_PENDING[cfg.family])
-    if cfg.family not in ("dense", "vlm"):
+    if cfg.family not in _FAMILY_MOD:
         raise ValueError(f"unknown family {cfg.family!r}")
-    return lm
+    return _FAMILY_MOD[cfg.family]
 
 
 def init_params(cfg: ArchConfig, generator: torch.Generator, device=None):
@@ -41,13 +32,18 @@ def init_params(cfg: ArchConfig, generator: torch.Generator, device=None):
 
 def prefill(cfg: ArchConfig, params, batch: dict,
             cache_dtype=torch.bfloat16, cap: int | None = None):
-    """(last-token logits [B,1,V], cache) for ``batch["tokens"]``."""
+    """(last-token logits [B,1,V], cache) for ``batch["tokens"]`` (plus
+    ``vision_embeds`` for vlm and ``frames`` for encdec).  The ssm cache is
+    O(1) in the context, so ``cap`` is not passed to it."""
     kwargs = {}
+    if cap is not None and cfg.family != "ssm":
+        kwargs["cap"] = cap
     if cfg.family == "vlm":
         kwargs["vision_embeds"] = batch.get("vision_embeds")
+    if cfg.family == "encdec":
+        kwargs["frames"] = batch.get("frames")
     return model_module(cfg).prefill(cfg, params, batch["tokens"],
-                                     cache_dtype=cache_dtype, cap=cap,
-                                     **kwargs)
+                                     cache_dtype=cache_dtype, **kwargs)
 
 
 def decode_step(cfg: ArchConfig, params, cache, tokens, pos: int):
@@ -57,6 +53,12 @@ def decode_step(cfg: ArchConfig, params, cache, tokens, pos: int):
 def cache_shapes(cfg: ArchConfig, batch: int, cap: int,
                  dtype=torch.bfloat16):
     """The serving cache on the meta device: shapes and dtypes, no
-    allocation."""
-    return model_module(cfg).init_cache(cfg, batch, cap, dtype,
-                                        device="meta")
+    allocation.  encdec's cross cache holds ``cap // frames_ratio``
+    frames; the ssm cache has no capacity."""
+    mod = model_module(cfg)
+    if cfg.family == "encdec":
+        return mod.init_cache(cfg, batch, cap, cap // cfg.frames_ratio,
+                              dtype, device="meta")
+    if cfg.family == "ssm":
+        return mod.init_cache(cfg, batch, dtype=dtype, device="meta")
+    return mod.init_cache(cfg, batch, cap, dtype, device="meta")

@@ -7,8 +7,12 @@ machine that has only PyTorch and CUDA:
 Elsewhere every test skips (the ``cuda`` fixture decides, never at import).
 Each test also checks that the wrapper counted exactly its own launches.
 """
+import copy
 import functools
 import importlib
+import importlib.util
+from dataclasses import replace
+from pathlib import Path
 from types import SimpleNamespace
 
 import numpy as np
@@ -18,6 +22,7 @@ import torch
 import repro_torch.core as tcore
 from repro_torch import convert
 from repro_torch.checkpointing import store
+from repro_torch.configs import ARCHS, smoke_config
 from repro_torch.core import ShardedFabric, pack_ext_addr
 from repro_torch.core.fabric import stack_views
 from repro_torch.kernels import launches, ops
@@ -25,7 +30,10 @@ from repro_torch.kernels import fabric_egress as tfe
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import memcrypt as tmc
 from repro_torch.kernels import permcheck as tpc
+from repro_torch.layers import moe as tmoe
+from repro_torch.layers import moe_ep as tep
 from repro_torch.memsim import clock as tclock
+from repro_torch.models import registry
 from repro_torch.workloads import gapbs as tgapbs
 from repro_torch.workloads import graphs as tgraphs
 from torch_parity import (BROKEN_SHARDS, EDGE_SHARDS,  # noqa: F401
@@ -354,6 +362,10 @@ FLASH_CASES = [
     (1, 4, 2, 200, 200, 256, True, 33),
     # prefill at qwen3-4b's serving shape
     (4, 32, 8, 1024, 1024, 128, True, -1),
+    # cross attention (seamless): non-causal prefill with Sq > Sk, and the
+    # non-causal split-K decode over the encoder frames
+    (4, 16, 16, 256, 64, 64, False, -1),
+    (4, 16, 16, 1, 64, 64, False, -1),
 ]
 
 
@@ -517,3 +529,82 @@ def test_store_round_trip_of_card_tensors(cuda, tmp_path):  # noqa: F811
             tree[k].dtype
         assert torch.equal(got[k], tree[k])
     assert torch.equal(got["cpu"][0], tree["cpu"][0])
+
+
+# ---------------------------------------------------------------------------
+# The serving families: each smoke config on the card held to the same
+# weights on the CPU (which the CPU parity tests hold to the JAX package)
+# ---------------------------------------------------------------------------
+
+FAMILY_LAYERS = {"olmoe-1b-7b": 4, "llama4-maverick-400b-a17b": 4,
+                 "falcon-mamba-7b": 4, "zamba2-1.2b": 5,
+                 "seamless-m4t-medium": 4}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", sorted(FAMILY_LAYERS))
+def test_family_on_the_card_matches_the_cpu(cuda, arch):  # noqa: F811
+    """Prefill and three decode steps: logits within 1e-4 of the CPU run;
+    every attention family launches the flash kernel, falcon-mamba none."""
+    cfg = replace(smoke_config(ARCHS[arch]), n_layers=FAMILY_LAYERS[arch])
+    cpu = registry.init_params(cfg, torch.Generator().manual_seed(3), "cpu")
+    card = copy.deepcopy(cpu).to(cuda)
+    rng = np.random.default_rng(4)
+    toks = torch.from_numpy(rng.integers(3, cfg.vocab - 1, (2, 16))
+                            .astype(np.int32))
+    batch = {"tokens": toks}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.from_numpy(
+            rng.normal(size=(2, 8, cfg.d_model)).astype(np.float32))
+    launches["flash_attention"] = 0
+    runs = []
+    for params, dev in ((cpu, "cpu"), (card, cuda)):
+        lg, cache = registry.prefill(
+            cfg, params, {k: v.to(dev) for k, v in batch.items()},
+            cache_dtype=torch.float32, cap=20)
+        out = [lg]
+        for pos in range(16, 19):
+            nxt = torch.full((2, 1), pos, dtype=torch.int32, device=dev)
+            lg, cache = registry.decode_step(cfg, params, cache, nxt, pos)
+            out.append(lg)
+        runs.append(out)
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        torch.testing.assert_close(b.cpu(), a, rtol=1e-4, atol=1e-4)
+    if cfg.family == "ssm":
+        assert launches["flash_attention"] == 0
+    else:
+        assert launches["flash_attention"] > 0
+
+
+@pytest.mark.cuda
+def test_moe_ep_matches_einsum_on_the_card(cuda):  # noqa: F811
+    """With capacity lifted the sorted and the one-hot dispatch compute
+    the same function on the card."""
+    p = tmoe.init_moe(64, 48, 8, torch.float32,
+                      torch.Generator(device=cuda).manual_seed(5), cuda)
+    x = torch.randn((2, 24, 64), generator=torch.Generator(
+        device=cuda).manual_seed(6), device=cuda)
+    for top_k in (1, 2, 4):
+        ye, ae = tmoe.moe_ffn(p, x, top_k=top_k, capacity_factor=8.0)
+        yp, ap = tep.moe_ffn_ep(p, x, top_k=top_k, capacity_factor=8.0)
+        torch.testing.assert_close(yp, ye, rtol=2e-5, atol=2e-5)
+        torch.testing.assert_close(ap, ae, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_shared_experts_flow_on_the_card(cuda):  # noqa: F811
+    """examples/torch_serve_shared_experts.py on the card: A's fetches all
+    denied after its revocation, B's tokens unchanged, B's denied rows
+    zero (the example raises otherwise)."""
+    path = Path(__file__).resolve().parents[1] / "examples" / \
+        "torch_serve_shared_experts.py"
+    spec = importlib.util.spec_from_file_location("shared_experts", path)
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    cfg = replace(smoke_config(ARCHS["olmoe-1b-7b"]), n_layers=2)
+    launches["flash_attention"] = 0
+    out = example.run(cfg, device=cuda, log=lambda m: None)
+    assert out["a_revoked"][1] == out["fetches_per_tenant"]
+    assert out["b_after"][0] == out["b_before"][0]
+    assert launches["flash_attention"] == 4 * cfg.n_layers

@@ -27,6 +27,7 @@ def _imported_roots(path: Path) -> set[str]:
 def test_port_sources_import_neither_jax_nor_the_jax_package():
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
+    files.append(REPO / "examples" / "torch_serve_shared_experts.py")
     assert len(files) > 15
     for f in files:
         bad = _imported_roots(f) & set(FORBIDDEN)
@@ -57,6 +58,25 @@ def test_fault_and_timing_modules_import_with_jax_blocked():
             "repro_torch.memsim.lru", "repro_torch.memsim.model",
             "repro_torch.memsim.replay", "repro_torch.workloads",
             "repro_torch.workloads.graphs", "repro_torch.workloads.gapbs"]
+    code = ("import importlib, sys\n"
+            f"for name in {FORBIDDEN!r}:\n"
+            "    sys.modules[name] = None\n"
+            f"for m in {mods!r}:\n"
+            "    importlib.import_module(m)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          env={"PYTHONPATH": str(REPO / "src"),
+                               "PATH": "/usr/bin:/bin"},
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_model_family_modules_import_with_jax_blocked():
+    """The MoE, Mamba and encoder-decoder modules and every model family
+    import while any import of JAX or the JAX package raises."""
+    mods = ["repro_torch.layers.moe", "repro_torch.layers.moe_ep",
+            "repro_torch.layers.mamba", "repro_torch.models.ssm",
+            "repro_torch.models.hybrid", "repro_torch.models.encdec",
+            "repro_torch.models.registry", "repro_torch.convert"]
     code = ("import importlib, sys\n"
             f"for name in {FORBIDDEN!r}:\n"
             "    sys.modules[name] = None\n"
@@ -111,3 +131,13 @@ def test_serving_entry_points_need_cuda_unless_asked_for_the_cpu(
         serve.main(["--requests", "2", "--prompt-len", "4", "--gen", "2"])
     assert serve.ServeEngine(cfg, params, batch=1, cap=8,
                              device="cpu").device.type == "cpu"
+    for arch in ("olmoe-1b-7b", "falcon-mamba-7b", "zamba2-1.2b",
+                 "seamless-m4t-medium"):
+        cfg = smoke_config(ARCHS[arch])
+        with pytest.raises(RuntimeError, match="CUDA"):
+            registry.init_params(cfg, torch.Generator())
+        args = (cfg, 1, 8, 2) if cfg.family == "encdec" else (cfg, 1, 8)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            registry.model_module(cfg).init_cache(*args)
+        assert registry.init_params(cfg, torch.Generator(), "cpu") \
+            is not None

@@ -161,3 +161,73 @@ def test_cli_runs_on_the_cpu(capsys):
           "--gen", "3", "--batch", "2"])
     out = capsys.readouterr().out
     assert "replacement tenant served" in out and "'aborted': True" in out
+
+
+# the other serving families at smoke width: (arch, layers)
+FAMILIES = {"olmoe-1b-7b": 2, "falcon-mamba-7b": 2, "zamba2-1.2b": 3}
+
+
+def _family_factories(arch):
+    n = FAMILIES[arch]
+    jcfg = replace(jsmoke(JARCHS[arch]), n_layers=n)
+    cfg = replace(smoke_config(ARCHS[arch]), n_layers=n)
+    jp = jreg.init_params(jcfg, jax.random.key(1))
+    params = convert.params_from_numpy(cfg, jax.tree.map(np.asarray, jp),
+                                       device="cpu")
+    return (lambda **kw: JEngine(jcfg, jp, batch=2, cap=24, **kw),
+            lambda **kw: ServeEngine(cfg, params, batch=2, cap=24,
+                                     device="cpu", **kw))
+
+
+@pytest.mark.parametrize("arch", sorted(FAMILIES))
+def test_families_serve_identically(arch):
+    """The serving CLI's sequence on MoE (olmoe: capacity binds at decode),
+    Mamba1 and the Mamba2 hybrid: co-resident tenants served continuously
+    through the fused egress, one revoked mid-service, evicted, and a
+    replacement admitted on its pages — identical step for step."""
+    def scenario(e, rng, log):
+        e.add_tenant("a", host_id=0)
+        e.add_tenant("b", host_id=0)
+        for who in ("a", "b", "a", "b"):
+            _prompts(e, rng, who, 1)
+        log.append(e.run(gen=3, max_steps=50))
+        log.append(_state(e))
+        _prompts(e, rng, "a", 1)
+        _prompts(e, rng, "b", 1)
+        e.revoke("a")
+        log.append(e.run_tenant("a", gen=3))
+        log.append(e.run_tenant("b", gen=3))
+        ev = e.evict_tenant("a")
+        c = e.add_tenant("c", host_id=0)
+        log.append((ev.kv_start_page, c.kv_start_page))
+        _prompts(e, rng, "c", 1)
+        log.append(e.run_tenant("c", gen=3))
+        log.append(_state(e))
+
+    log = _run_both(_family_factories(arch), scenario, fused_egress=True)
+    assert log[0] == {"a": {"served": 2, "aborted": 0},
+                      "b": {"served": 2, "aborted": 0}}
+    assert log[2]["aborted"] and log[2]["fault"] > 0
+    assert not log[3]["aborted"] and not log[5]["aborted"]
+    assert log[4][0] == log[4][1]
+
+
+def test_encdec_engine_names_the_missing_frames():
+    """The engine passes only tokens; the reference's encdec prefill then
+    crashes on ``None.astype`` (ROADMAP reference defect 6).  The port
+    raises a ValueError that says the frames are missing."""
+    arch = "seamless-m4t-medium"
+    jcfg = replace(jsmoke(JARCHS[arch]), n_layers=1, n_enc_layers=1)
+    cfg = replace(smoke_config(ARCHS[arch]), n_layers=1, n_enc_layers=1)
+    jp = jreg.init_params(jcfg, jax.random.key(2))
+    params = convert.params_from_numpy(cfg, jax.tree.map(np.asarray, jp),
+                                       device="cpu")
+    engines = (JEngine(jcfg, jp, batch=1, cap=12),
+               ServeEngine(cfg, params, batch=1, cap=12, device="cpu"))
+    for e in engines:
+        e.add_tenant("a", host_id=0)
+        _prompts(e, np.random.default_rng(0), "a", 1, plen=6)
+    with pytest.raises(AttributeError):
+        engines[0].step(gen=2)
+    with pytest.raises(ValueError, match="frames"):
+        engines[1].step(gen=2)
