@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's checked egress path and its serving path
-on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's checked egress path, its serving path and
+its training path on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -69,7 +69,21 @@ CUDA toolkit.  Phases, each reported on its own line:
      prefill/decode with 64 encoder frames (the engine has none), every
      attention, cross attention included, through the flash kernel;
  10. the shared-experts flow of ``examples/torch_serve_shared_experts.py``
-     at olmoe's full width with 2 layers.
+     at olmoe's full width with 2 layers;
+ 11. main path 6, training — first one train step of qwen1.5-0.5b at full
+     width with 2 layers (f32) on the card and on the CPU from the same
+     weights and batch (loss, grad-norm, every gradient and every
+     parameter's step held by norm); then the launcher's loop on
+     qwen1.5-0.5b ``--preset full`` (bf16 parameters, f32 moments, remat
+     full) at batch 8 x 256 for 50 steps (every parameter has a non-zero
+     gradient after step 1, the loss DECREASED, no flash launch: training
+     attends through the differentiable path), an asynchronous checkpoint
+     at step 25 restored from LATEST bit for bit into a fresh model that
+     finishes the run and trains 10 more steps, and the restored
+     checkpoint's first leaf encrypted and decrypted with the host key
+     through the memcrypt kernel; then the step's wall, device time by op
+     (the remat recompute by a profiler scope), tokens/s, peak memory and
+     FLOP share.
   Each main path's kernel launch counts are zeroed just before it and read
   just after: each of its kernels must have launched.
 
@@ -86,6 +100,7 @@ import gc
 import importlib.util
 import json
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -105,18 +120,22 @@ from repro_torch.core import (FAULT_NO_ENTRY, FAULT_PERM,  # noqa: E402
                               FaultSpec, FMUnavailable, Proposal,
                               ShardedFabric, pack_ext_addr, tenant_permbits)
 from repro_torch.core.fabric import stack_views  # noqa: E402
+from repro_torch.data import DataConfig, SyntheticLM  # noqa: E402
 from repro_torch.kernels import (_build, bucket_pad, launches,  # noqa: E402
                                  ops, reset_launches)
 from repro_torch.kernels import fabric_egress as fe  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import memcrypt as mc  # noqa: E402
 from repro_torch.kernels import permcheck as pc  # noqa: E402
+from repro_torch.launch import train  # noqa: E402
 from repro_torch.launch.serve import ServeEngine, run_demo  # noqa: E402
+from repro_torch.launch.steps import build_train_step  # noqa: E402
 from repro_torch.layers import moe_ep  # noqa: E402
 from repro_torch.layers.attention import Attention  # noqa: E402
 from repro_torch.memsim.clock import ClockedFabric, TimingConfig  # noqa: E402
 from repro_torch.memsim.replay import replay, timing_penalty  # noqa: E402
 from repro_torch.models import registry  # noqa: E402
+from repro_torch.optim import init_state  # noqa: E402
 from repro_torch.workloads import gapbs, graphs  # noqa: E402
 
 SEED = 0
@@ -1872,6 +1891,381 @@ def shared_experts_path(dev) -> dict:
                                        "b_after", "fetches_per_tenant")})
 
 
+# -- the training slice --------------------------------------------------------
+
+# Main path 6: the launcher's loop on qwen1.5-0.5b at full width and depth
+# (`--preset full`: bf16 parameters, f32 moments, remat full) at its
+# default batch and learning rate; the reference example's encrypted-at-rest
+# checkpoint leaf through the memcrypt kernel.
+TRAIN_ARCH = "qwen1.5-0.5b"
+TRAIN_BATCH, TRAIN_SEQ = 8, 256
+TRAIN_STEPS, TRAIN_CKPT_AT, TRAIN_MORE = 50, 25, 10
+TRAIN_LR, TRAIN_WARMUP = 3e-4, 20
+TRAIN_PROFILE_STEPS = 1
+HOST_KEY = dict(key0=0x5EC2E7, key1=0x7E9A27)   # the reference example's
+# (a): one step of the full-width model cut to 2 layers, f32, on the card
+# and on the CPU from the same weights and batch.  The devices sum in
+# other orders; AdamW divides by sqrt(nu) + eps, so a parameter's step can
+# differ by up to lr where its gradient is near eps: steps are held by norm.
+GRAD_CHECK_LAYERS, GRAD_CHECK_BATCH, GRAD_CHECK_SEQ = 2, 2, 128
+GRAD_CHECK_TOL = dict(loss=1e-5, grad_norm=1e-5, grad=1e-4, step=1e-3)
+TRAIN_OP_CATEGORIES = {
+    "matmuls (mm)": ("aten::mm", "aten::addmm"),
+    "attention (bmm, softmax)": ("aten::bmm", "aten::_softmax",
+                                 "aten::_softmax_backward_data"),
+}
+CE_BACKWARD = ("LogsumexpBackward", "TakeAlongDimBackward", "GatherBackward")
+
+
+def _rel(got, want) -> float:
+    """||got - want|| / ||want|| in f64 on the host."""
+    got = got.detach().to("cpu", torch.float64)
+    want = want.detach().to("cpu", torch.float64)
+    return float((got - want).norm() / max(float(want.norm()), 1e-30))
+
+
+def train_grad_check(dev) -> dict:
+    """(a) One `train_step` of qwen1.5-0.5b at full width with
+    ``GRAD_CHECK_LAYERS`` layers in f32 on the card and on the CPU, from
+    the same weights and batch: loss, grad-norm, every gradient leaf and
+    every parameter's step within ``GRAD_CHECK_TOL`` (relative, by norm),
+    and no flash launch."""
+    cfg = replace(ARCHS[TRAIN_ARCH], n_layers=GRAD_CHECK_LAYERS,
+                  param_dtype="float32")
+    t0 = time.perf_counter()
+    cpu, cpu_opt = train.init_model(cfg, torch.device("cpu"), SEED)
+    card = copy.deepcopy(cpu).to(dev)
+    card_opt = init_state(card)
+    before = {n: p.detach().clone() for n, p in cpu.named_parameters()}
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=GRAD_CHECK_SEQ,
+                                  global_batch=GRAD_CHECK_BATCH, seed=SEED))
+    step_fn = build_train_step(cfg, peak_lr=TRAIN_LR, warmup=0,
+                               total_steps=100)
+    batch = data.batch(0)
+    flash0 = launches["flash_attention"]
+    _, m_card = step_fn(card, card_opt, train.make_batch(cfg, data, 0, dev))
+    torch.cuda.synchronize()
+    flash = launches["flash_attention"] - flash0
+    t_cpu = time.perf_counter()
+    _, m_cpu = step_fn(cpu, cpu_opt, train.make_batch(cfg, data, 0, "cpu"))
+    t_cpu = time.perf_counter() - t_cpu
+    err = {k: _rel(m_card[k], m_cpu[k]) for k in ("loss", "grad_norm")}
+    card_p = dict(card.named_parameters())
+    grad_err, step_err = {}, {}
+    for n, p in cpu.named_parameters():
+        grad_err[n] = _rel(card_p[n].grad, p.grad)
+        step_err[n] = _rel(card_p[n].detach().cpu() - before[n],
+                           p.detach() - before[n])
+    err["grad"] = max(grad_err.values())
+    err["step"] = max(step_err.values())
+    worst = {k: max(d, key=d.get) for k, d in (("grad", grad_err),
+                                               ("step", step_err))}
+    log(f"train (a): qwen1.5-0.5b full width, {GRAD_CHECK_LAYERS} layers, "
+        f"f32, batch {GRAD_CHECK_BATCH} x {GRAD_CHECK_SEQ} (tokens "
+        f"{batch['tokens'].shape}): card vs CPU loss "
+        f"{float(m_card['loss']):.6f} / {float(m_cpu['loss']):.6f}; "
+        f"relative errors {err} (worst grad {worst['grad']}, worst step "
+        f"{worst['step']}); limits {GRAD_CHECK_TOL}; flash launches "
+        f"{flash}; CPU step {t_cpu:.2f} s")
+    bad = {k: v for k, v in err.items() if not v <= GRAD_CHECK_TOL[k]}
+    if bad:
+        raise AssertionError(f"train (a): card and CPU disagree: {bad}")
+    if flash:
+        raise AssertionError(f"train (a): {flash} flash launches in a "
+                             "training step")
+    del cpu, card, cpu_opt, card_opt
+    free_card()
+    return dict(errors=err, limits=GRAD_CHECK_TOL, worst=worst,
+                cpu_step_s=t_cpu, wall_s=time.perf_counter() - t0)
+
+
+def _train_flops(cfg, b: int, s: int) -> tuple[float, float]:
+    """(model FLOPs of one train step: forward + backward of every matmul
+    and the full [S, S] attention products the layers compute; the same
+    plus the remat forward recompute of every layer)."""
+    d, hd = cfg.d_model, cfg.head_dim
+    layer = d * hd * (2 * cfg.n_heads + 2 * cfg.n_kv_heads) + 3 * d * cfg.d_ff
+    t = b * s
+    attn_fwd = 4 * b * cfg.n_heads * s * s * hd * cfg.n_layers
+    fwd = 2 * t * (layer * cfg.n_layers + cfg.vocab_padded * d) + attn_fwd
+    model = 3 * fwd
+    recompute = 2 * t * layer * cfg.n_layers + attn_fwd
+    return model, model + recompute
+
+
+def profile_train_steps(cfg, model, opt, data, step_fn, first: int,
+                        dev) -> tuple[dict, object]:
+    """Device time of ``TRAIN_PROFILE_STEPS`` steps from ``first`` by op:
+    matmul and attention aten ops (self time), the cross-entropy (forward
+    scope and its backward nodes), AdamW and the clip (scopes around the
+    step's calls), and the remat recompute (a scope around each layer's
+    forward, named by whether a backward is running it); the device busy
+    share of the profiled wall and the top device ops."""
+    import repro_torch.launch.steps as steps_mod
+    import repro_torch.models.lm as lm_mod
+    wrapped = {}
+
+    def scoped(mod, name, label):
+        fn = getattr(mod, name)
+        wrapped[(mod, name)] = fn
+
+        def run(*a, **k):
+            with torch.profiler.record_function(label):
+                return fn(*a, **k)
+        setattr(mod, name, run)
+
+    def scoped_remat(fn, policy):
+        def layer(*a, **k):
+            # the checkpoint reruns the layer inside the backward
+            label = "train::layer_forward" \
+                if torch._C._current_graph_task_id() == -1 \
+                else "train::remat_recompute"
+            with torch.profiler.record_function(label):
+                return fn(*a, **k)
+        return wrapped[(lm_mod, "apply_remat")](layer, policy)
+
+    scoped(lm_mod, "cross_entropy", "train::cross_entropy")
+    scoped(steps_mod, "apply_updates", "train::adamw")
+    scoped(steps_mod, "clip_by_global_norm", "train::clip")
+    wrapped[(lm_mod, "apply_remat")] = lm_mod.apply_remat
+    lm_mod.apply_remat = scoped_remat
+    batches = [train.make_batch(cfg, data, first + i, dev)
+               for i in range(TRAIN_PROFILE_STEPS)]
+    try:
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            for b in batches:
+                opt, _ = step_fn(model, opt, b)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t) * 1e3 / TRAIN_PROFILE_STEPS
+    finally:
+        for (mod, name), fn in wrapped.items():
+            setattr(mod, name, fn)
+    n = TRAIN_PROFILE_STEPS
+    # The scopes are user annotations: the profiler also lists each as a
+    # device-side span (gaps included), which is not device work.  Device
+    # time is the kernels' and copies' own; a scope's is its CPU event's
+    # kernels, children included.
+    cuda_type = torch.autograd.DeviceType.CUDA
+    raw = prof.events()
+    annotation = lambda e: bool(getattr(e, "is_user_annotation", False)) \
+        or e.name.startswith("train::")
+    device = [e for e in raw if e.device_type == cuda_type
+              and not annotation(e)]
+    device_ms = sum(e.device_time_total for e in device) / n / 1e3
+    host = [e for e in raw if e.device_type != cuda_type]
+    scope = lambda pick: sum(e.device_time_total for e in host
+                             if pick(e.name)) / n / 1e3
+    self_ms = {}
+    for e in host:
+        if e.name.startswith("aten::"):
+            self_ms[e.name] = self_ms.get(e.name, 0.0) + \
+                e.self_device_time_total / n / 1e3
+    by_op = {cat: sum(self_ms.get(k, 0.0) for k in names)
+             for cat, names in TRAIN_OP_CATEGORIES.items()}
+    by_op["cross-entropy"] = scope(lambda k: k == "train::cross_entropy") \
+        + scope(lambda k: "evaluate_function" in k
+                and any(c in k for c in CE_BACKWARD))
+    by_op["AdamW"] = scope(lambda k: k == "train::adamw")
+    by_op["clip"] = scope(lambda k: k == "train::clip")
+    by_op["elementwise and other"] = device_ms - sum(by_op.values())
+    kernels: dict = {}
+    for e in device:
+        kernels[e.name] = kernels.get(e.name, 0.0) + \
+            e.device_time_total / n / 1e3
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
+    top_aten = sorted(self_ms.items(), key=lambda kv: -kv[1])[:12]
+    return dict(wall_ms=wall, device_ms=device_ms, busy=device_ms / wall,
+                by_op=by_op,
+                remat_recompute_ms=scope(
+                    lambda k: k == "train::remat_recompute"),
+                layer_forward_ms=scope(lambda k: k == "train::layer_forward"),
+                top_kernels=top, top_aten_self=top_aten), opt
+
+
+def training_path(dev, smi: str) -> dict:
+    """Main path 6: (b) the launcher's loop (`launch.train.train_loop`) on
+    qwen1.5-0.5b ``--preset full`` at batch 8 x 256 for 50 steps, (c) an
+    asynchronous checkpoint at step 25 restored from LATEST into a fresh
+    model and optimizer bit for bit, the run resumed from it to step 50,
+    then 10 more steps, (d) the restored checkpoint's first leaf through
+    the memcrypt kernel; (e) the step's wall, device time by op, tokens/s,
+    peak memory and FLOP share, each beside the card's name and limit."""
+    t0 = time.perf_counter()
+    cfg = train.preset_config(TRAIN_ARCH, "full")
+    ckpt_dir = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    model, opt = train.init_model(cfg, dev, SEED)
+    n_params = sum(p.numel() for p in model.parameters())
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                  global_batch=TRAIN_BATCH))
+    step_fn = build_train_step(cfg, peak_lr=TRAIN_LR, warmup=TRAIN_WARMUP,
+                               total_steps=max(TRAIN_STEPS, 100))
+    loop = functools.partial(
+        train.train_loop, cfg, data=data, step_fn=step_fn, device=dev,
+        log_every=5, last_step=TRAIN_STEPS - 1,
+        log=lambda m: log(f"train: {m}"))
+    reset_launches()
+    t_run = time.perf_counter()
+    # (b) step 0 alone: after it every parameter has a non-zero gradient
+    run0 = loop(model=model, opt=opt, steps=range(0, 1))
+    no_grad = [n for n, p in model.named_parameters()
+               if p.grad is None or not bool(p.grad.ne(0).any())]
+    if no_grad:
+        raise AssertionError(f"train: {len(no_grad)} parameters without a "
+                             f"non-zero gradient after step 1: {no_grad[:6]}")
+    # (c) steps 1-24 and the asynchronous checkpoint at 25, joined at the
+    # loop's end; restored from LATEST into a fresh model and state
+    t = time.perf_counter()
+    run1 = loop(model=model, opt=run0["opt"], steps=range(1, TRAIN_CKPT_AT),
+                ckpt_dir=str(ckpt_dir), ckpt_every=TRAIN_CKPT_AT)
+    save_loop_s = time.perf_counter() - t
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    t = time.perf_counter()
+    model2, opt2 = train.init_model(cfg, dev, SEED + 1)
+    opt2, at = train.restore_state(str(ckpt_dir), model2, opt2)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t
+    if at != TRAIN_CKPT_AT:
+        raise AssertionError(f"train: LATEST is step {at}, not "
+                             f"{TRAIN_CKPT_AT}")
+    saved = train.train_state(model, run1["opt"])
+    restored = train.train_state(model2, opt2)
+    bits = lambda x: x.detach().view(torch.int16) \
+        if x.dtype == torch.bfloat16 else x.detach()
+    differ = [n for n, p in saved[0].items()
+              if not torch.equal(bits(p), bits(restored[0][n]))]
+    differ += [f"{f}.{n}" for f in ("mu", "nu")
+               for n, m in getattr(saved[1], f).items()
+               if not torch.equal(m, getattr(restored[1], f)[n])]
+    if differ or {int(saved[1].step), int(restored[1].step)} != {at}:
+        raise AssertionError(f"train: the restored state differs from the "
+                             f"saved one: {differ[:6]}")
+    dtypes = sorted({str(x.dtype) for x in restored[0].values()}
+                    | {str(x.dtype) for x in opt2.mu.values()})
+    # (d) the restored checkpoint's first leaf (the token table) as u32
+    # words, encrypted with the host key through the memcrypt kernel
+    leaf_name, leaf = next(iter(restored[0].items()))
+    words = leaf.detach().reshape(-1).view(torch.int32)
+    enc = ops.memory_encrypt(words, device=dev, **HOST_KEY)
+    dec = ops.memory_decrypt(enc, device=dev, **HOST_KEY)
+    plain = mc.ref.memcrypt(words, HOST_KEY["key0"], HOST_KEY["key1"], 0)
+    torch.cuda.synchronize()
+    compare("train leaf memcrypt", [enc], [plain])
+    changed = int((enc != words).sum())
+    if changed == 0:
+        raise AssertionError("train: the ciphertext equals the plaintext")
+    compare("train leaf decrypt", [dec], [words])
+    log(f"train (c, d): checkpoint {TRAIN_CKPT_AT} ({len(saved[0])} "
+        f"parameters + moments, {dtypes}) restored from LATEST bit for "
+        f"bit in {restore_s:.2f} s; leaf {leaf_name} {tuple(leaf.shape)} "
+        f"{leaf.dtype} = {words.numel()} u32 words: ciphertext equals the "
+        f"plain version, {changed} words changed, decrypts to the leaf")
+    first_losses = run0["losses"] + run1["losses"]
+    step_s = list(run1["step_s"])
+    del model, saved, run0, run1, opt, enc, dec, plain
+    free_card()
+    # the run resumes from the restored state: steps 25-49, then 10 more
+    run2 = loop(model=model2, opt=opt2,
+                steps=range(TRAIN_CKPT_AT, TRAIN_STEPS))
+    wall = time.perf_counter() - t_run
+    losses = first_losses + run2["losses"]
+    done = train.done_line(losses, wall)
+    log(f"train: {done}")
+    run3 = loop(model=model2, opt=run2["opt"],
+                steps=range(TRAIN_STEPS, TRAIN_STEPS + TRAIN_MORE))
+    torch.cuda.synchronize()
+    counts = dict(launches)
+    all_losses = losses + run3["losses"]
+    if len(losses) != TRAIN_STEPS or not np.isfinite(all_losses).all():
+        raise AssertionError(f"train: losses {all_losses}")
+    if not done.endswith("(DECREASED)"):
+        raise AssertionError(f"train: the loss did not decrease: {done}")
+    gnorm = float(run3["metrics"]["grad_norm"])
+    if not gnorm > 0:
+        raise AssertionError(f"train: grad-norm {gnorm}")
+    if counts["flash_attention"] or counts["memcrypt"] < 2:
+        raise AssertionError(f"train: launches {counts}: training must not "
+                             "launch flash, the leaf must launch memcrypt")
+
+    # (e) records
+    step_ms = [x * 1e3 for x in step_s + run2["step_s"]]
+    med = float(np.median(step_ms))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    # the leaf's memcrypt timed before the step profile (a profiler
+    # run after it has returned no device events)
+    leaf_call_ms = cuda_ms(lambda: mc.memcrypt(words, **HOST_KEY), 10)
+    leaf_ms = kernel_only_ms(lambda: mc.memcrypt(words, **HOST_KEY),
+                             "memcrypt")
+    leaf_plain_ms = cuda_ms(lambda: mc.ref.memcrypt(
+        words, HOST_KEY["key0"], HOST_KEY["key1"], 0), 3)
+    leaf_bound = bound(8 * words.numel(), KEYSTREAM_OPS * words.numel())
+    t = time.perf_counter()
+    prof, opt_next = profile_train_steps(
+        cfg, model2, run3["opt"], data, step_fn, TRAIN_STEPS + TRAIN_MORE,
+        dev)
+    profile_s = time.perf_counter() - t
+    recompute_ms = prof["remat_recompute_ms"]
+    model_flops, hw_flops = _train_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    by_op = {k: round(v, 3) for k, v in prof["by_op"].items()}
+    rec = dict(
+        arch=TRAIN_ARCH, preset="full", params=n_params,
+        batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=TRAIN_STEPS,
+        more_steps=TRAIN_MORE, losses=all_losses, done=done,
+        launches=counts, step_ms=step_ms, step_median_ms=med,
+        tokens_per_s=tokens * 1e3 / med, peak_memory_gb=peak_gb,
+        restore_s=restore_s, save_loop_s=save_loop_s, profile_s=profile_s,
+        checkpoint_dtypes=dtypes, profile=prof,
+        busy_of_median=prof["device_ms"] / med,
+        remat_recompute_ms=recompute_ms, model_flops=model_flops,
+        flops_with_recompute=hw_flops,
+        model_flop_share=model_flops / (med / 1e3) / PEAK_BF16_FLOPS,
+        hw_flop_share=hw_flops / (med / 1e3) / PEAK_BF16_FLOPS,
+        flop_floor_ms=hw_flops / PEAK_BF16_FLOPS * 1e3,
+        leaf_words=words.numel(), leaf_memcrypt_ms=leaf_ms,
+        leaf_call_ms=leaf_call_ms,
+        leaf_plain_ms=leaf_plain_ms, leaf_bound_ms=leaf_bound[0],
+        leaf_bound_by=leaf_bound[1])
+    log(f"train (e) on {smi}: qwen1.5-0.5b full ({n_params / 1e6:.1f} M "
+        f"parameters, bf16, remat full), batch {TRAIN_BATCH} x {TRAIN_SEQ}: "
+        f"step wall median {med:.2f} ms (steps 1-49: "
+        f"{min(step_ms):.2f}-{max(step_ms):.2f}), {rec['tokens_per_s']:.0f} "
+        f"tokens/s; device time {prof['device_ms']:.2f} ms a step "
+        f"({100 * rec['busy_of_median']:.1f} % of the median wall; "
+        f"{100 * prof['busy']:.1f} % of the {prof['wall_ms']:.2f} ms "
+        f"profiled wall); device ms by op {by_op}; remat recompute "
+        f"{recompute_ms:.2f} ms (the layers' first forward "
+        f"{prof['layer_forward_ms']:.2f} ms); peak memory {peak_gb:.2f} GB "
+        f"(steps 0-24); "
+        f"{model_flops / 1e12:.2f} TFLOP a step ({hw_flops / 1e12:.2f} with "
+        f"recompute, floor {rec['flop_floor_ms']:.2f} ms at "
+        f"{PEAK_BF16_FLOPS:.3e} FLOP/s): "
+        f"{100 * rec['model_flop_share']:.1f} % of the bf16 peak "
+        f"({100 * rec['hw_flop_share']:.1f} % with recompute)")
+    log(f"train (e) on {smi}: top device kernels "
+        f"{[(k[:60], round(v, 3)) for k, v in prof['top_kernels']]}; top "
+        f"aten ops by self device ms "
+        f"{[(k, round(v, 3)) for k, v in prof['top_aten_self']]}; "
+        f"asynchronous save + steps 1-24 {save_loop_s:.2f} s, profile "
+        f"{profile_s:.2f} s")
+    log(f"train (d) on {smi}: memcrypt of the {words.numel()}-word leaf "
+        f"{leaf_ms} ms by the profiler, {leaf_call_ms:.4f} ms a call by "
+        f"CUDA events (plain {leaf_plain_ms:.3f} ms, bound "
+        f"{leaf_bound[0]:.4f} ms by {leaf_bound[1]}); path launches "
+        f"{counts}")
+    del model2, opt2, opt_next, run2, run3, words, restored
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    free_card()
+    rec["wall_s"] = time.perf_counter() - t0
+    log(f"train: phase wall {rec['wall_s']:.3f} s")
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1930,7 +2324,12 @@ def main() -> int:
     moe = serve_main_path(dev, MOE_ARCH, "main moe")
     families = family_paths(dev)
     shared = shared_experts_path(dev)
-    for path in (serve, chaos, timing, moe, *families.values(), shared):
+    # main path 6: training (after the card-vs-CPU gradient check, which
+    # launches no kernel; the path resets and reads the counts inside)
+    grad_check = train_grad_check(dev)
+    training = training_path(dev, smi)
+    for path in (serve, chaos, timing, moe, *families.values(), shared,
+                 training):
         for name, n in path["launches"].items():
             counts[name] += n
     for name, path in (("chaos", chaos), ("timing", timing)):
@@ -1944,11 +2343,15 @@ def main() -> int:
         + "; ".join(f"{a} wall {p['wall_s']:.3f} s"
                     for a, p in families.items())
         + f"; shared experts wall {shared['wall_s']:.3f} s")
+    log(f"training phase on {smi}: gradient check wall "
+        f"{grad_check['wall_s']:.3f} s, training path wall "
+        f"{training['wall_s']:.3f} s")
 
     line = {"kernels": [], "main_path": main, "serve_path": serve,
             "chaos_path": chaos, "timing_path": timing,
             "moe_serve_path": moe, "family_paths": families,
             "shared_experts_path": shared,
+            "train_grad_check": grad_check, "training_path": training,
             "card": smi, "peaks": {"bytes_per_s": PEAK_BYTES_PER_S,
                                    "int32_ops_per_s": ops_per_s,
                                    "f32_flops": PEAK_F32_FLOPS,

@@ -7,10 +7,14 @@ given as numpy arrays (any object with the named array attributes: a JAX
 NamedTuple or pytree of arrays works, since ``np.asarray`` reads it), into
 the port's tensors and modules, and back again.  Model parameters and
 serving caches of every family cross the same way (`params_from_numpy`,
-`cache_from_numpy`, `cache_to_numpy`).  u32 words keep their bit
-patterns: ``uint32`` in numpy, int32 in torch.
+`cache_from_numpy`, `cache_to_numpy`), and so do the training path's
+parameters, gradients and AdamW state (`params_to_numpy`,
+`adamw_state_from_numpy`, `adamw_state_to_numpy`).  u32 words keep their
+bit patterns: ``uint32`` in numpy, int32 in torch.
 """
 from __future__ import annotations
+
+from collections import OrderedDict
 
 import numpy as np
 import torch
@@ -24,7 +28,8 @@ from .kernels.permcheck import ShardView
 from .layers.attention import KVCache
 from .layers.common import param
 from .layers.mamba import Mamba2Cache, MambaCache
-from .models import encdec, hybrid, lm, ssm
+from .models import encdec, hybrid, lm, registry, ssm
+from .optim import AdamWState
 
 
 def u32_to_numpy(t) -> np.ndarray:
@@ -257,3 +262,105 @@ def cache_to_numpy(cache):
     if isinstance(cache, dict):
         return {k: cache_to_numpy(v) for k, v in cache.items()}
     return _stacked([cache_to_numpy(c) for c in cache])
+
+
+# ---------------------------------------------------------------------------
+# the training path: parameters, gradients and optimizer state, back again
+# ---------------------------------------------------------------------------
+
+# the port's top-level names that the reference spells otherwise
+_TOP = {"tok": ("embed", "tok"), "head_w": ("head", "w"),
+        "layers": ("units",)}
+
+
+def reference_path(name: str) -> tuple[tuple[str, ...], tuple[int, ...]]:
+    """Where a parameter of the port (its ``named_parameters()`` name)
+    lives in the reference's pytree: (key path, index into the stacked
+    leaf).  ``layers.3.attn.wq`` -> (("units", "attn", "wq"), (3,));
+    zamba2's ``groups.1.2.mamba.w_x`` -> (("groups", "mamba", "w_x"),
+    (1, 2)); ``tok`` -> (("embed", "tok"), ())."""
+    parts = name.split(".")
+    path = list(_TOP.get(parts[0], (parts[0],)))
+    rest = parts[1:]
+    index = []
+    while rest and rest[0].isdigit():
+        index.append(int(rest.pop(0)))
+    return tuple(path + rest), tuple(index)
+
+
+def _insert(tree: dict, path, value) -> None:
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[path[-1]] = value
+
+
+def _lookup(tree, path):
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
+def _stack_named(named) -> dict:
+    """Port (name, tensor) pairs -> the reference's nested dict of stacked
+    f32 numpy arrays (a tied model's ``head`` is the reference's ``{}``)."""
+    groups: dict = {}
+    for name, t in named:
+        path, index = reference_path(name)
+        groups.setdefault(path, []).append(
+            (index, t.detach().to("cpu", torch.float32).numpy()))
+    tree: dict = {"head": {}}
+    for path, items in groups.items():
+        items.sort(key=lambda it: it[0])
+        idx = np.array([i for i, _ in items]).reshape(len(items), -1)
+        stack = [a for _, a in items]
+        lead = tuple(int(n) + 1 for n in idx.max(axis=0)) if idx.size else ()
+        value = np.stack(stack).reshape(lead + stack[0].shape) if lead \
+            else stack[0]
+        _insert(tree, path, value)
+    return tree
+
+
+def params_to_numpy(cfg: ArchConfig, model, *, grads: bool = False) -> dict:
+    """The port's model of any family as the reference's parameter pytree
+    (stacked per layer, f32 numpy arrays); with ``grads=True`` each
+    parameter's ``.grad`` in its place.  The inverse of
+    `params_from_numpy`."""
+    del cfg  # the names carry the layout
+    named = []
+    for name, p in model.named_parameters():
+        t = p.grad if grads else p
+        if t is None:
+            raise ValueError(f"parameter {name} has no gradient")
+        named.append((name, t))
+    return _stack_named(named)
+
+
+def adamw_state_from_numpy(cfg: ArchConfig, state, *,
+                           device=None) -> AdamWState:
+    """The reference's `AdamWState` (``step``, ``mu`` and ``nu`` trees
+    shaped like its parameters; numpy arrays) -> the port's, its moments
+    keyed by the port's parameter names in ``cfg.moment_dtype``."""
+    dev = resolve_device(device)
+    mdt = getattr(torch, cfg.moment_dtype)
+    names = [n for n, _ in registry.param_shapes(cfg).named_parameters()]
+
+    def moments(tree):
+        out = OrderedDict()
+        for name in names:
+            path, index = reference_path(name)
+            out[name] = _float_tensor(np.asarray(_lookup(tree, path))[index],
+                                      mdt, dev)
+        return out
+    return AdamWState(
+        step=torch.as_tensor(int(np.asarray(state.step)), dtype=torch.int32,
+                             device=dev),
+        mu=moments(state.mu), nu=moments(state.nu))
+
+
+def adamw_state_to_numpy(state: AdamWState) -> AdamWState:
+    """The port's `AdamWState` with the reference's layout: ``step`` an
+    int32 numpy scalar, ``mu``/``nu`` the reference's stacked trees of f32
+    numpy arrays (`params_to_numpy`'s layout)."""
+    return AdamWState(step=np.asarray(int(state.step), np.int32),
+                      mu=_stack_named(state.mu.items()),
+                      nu=_stack_named(state.nu.items()))

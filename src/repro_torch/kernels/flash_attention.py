@@ -5,8 +5,11 @@ dense decoder LM calls `flash_attention` on the card.  It computes what
 the reference's Pallas kernel computes (online softmax with f32
 statistics, causal and optional sliding-window masks, queries aligned to
 the END of the keys, GQA head ``h`` reading kv head ``h // (H / Hkv)``,
-output in ``q.dtype``), for f32 and bf16 operands.  It has no backward:
-serving needs none.
+output in ``q.dtype``), for f32 and bf16 operands.  It has no backward,
+as the reference's kernel has none: training attends through the
+attention layer's differentiable path, and the wrapper raises on CUDA
+operands that need a gradient rather than return an output that would
+drop it.
 
 The kernel takes one of three paths, by ``(Sq, dtype)``:
 
@@ -191,10 +194,17 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = -1):
     aligned strides with a contiguous head dim.  ``window > 0`` keeps keys
     ``> pos - window``.  Returns [B, H, Sq, dh] in ``q.dtype``, laid out
     like ``q``.  One call counts one launch, also where the decode path
-    runs its split and combine kernels.
+    runs its split and combine kernels.  Raises on CUDA operands that
+    autograd records: the kernel is forward-only.
     """
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention is forward-only (so is the reference's kernel): "
+            "an operand requires a gradient, which the kernel would drop; "
+            "training attends through the attention layer's differentiable "
+            "path")
     _check_shapes(q, k, v, causal)
     b, h, sq, dh = q.shape
     if dh not in HEAD_DIMS:

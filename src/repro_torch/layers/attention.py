@@ -16,7 +16,12 @@ every branch attends through the flash kernel (``self.attend``, which a
 caller may wrap per instance, e.g. to record its operands); on the CPU the
 branches mirror the reference's XLA path one for one (`_sdpa` below
 ``CHUNKED_THRESHOLD``, `chunked_attention` above, the masked full-cap
-`_sdpa` at decode).
+`_sdpa` at decode).  Training takes the reference's train path on either
+device: when autograd records q, k or v (`records_grad`), the no-cache
+branch and `cross_attention` attend through `_sdpa` / `chunked_attention`,
+which autograd differentiates.  The flash kernel has no backward (nor has
+the reference's Pallas kernel), and its wrapper raises on operands that
+need a gradient, so no gradient is dropped silently.
 
 The KV cache is updated IN PLACE (the reference returns a new cache): at
 full width one serving group's cache is over a gigabyte, and a functional
@@ -115,7 +120,7 @@ class Attention(nn.Module):
             if cache is not None:                          # prefill
                 cache.k[:, :, :s] = k.transpose(1, 2).to(cache.k.dtype)
                 cache.v[:, :, :s] = v.transpose(1, 2).to(cache.v.dtype)
-            if on_card:
+            if on_card and (cache is not None or not records_grad(q, k, v)):
                 out = self.attend(q.transpose(1, 2), k.transpose(1, 2),
                                   v.transpose(1, 2), causal=True,
                                   window=window).transpose(1, 2)
@@ -192,19 +197,25 @@ def cross_attention(p: Attention, x, memory, positions=None, *,
     ``kv_cache`` (`project_cross_kv`'s output).  No RoPE (``positions``
     and ``theta`` are the reference's signature).  On the card through the
     layer's ``attend`` hook (the flash kernel, ``causal=False``), on the
-    CPU through the reference's unmasked `_sdpa`."""
+    CPU, and in training, through the reference's unmasked `_sdpa`."""
     b, s, d = x.shape
     q = (x.reshape(b * s, d) @ p.wq.reshape(d, -1)).reshape(
         b, s, *p.wq.shape[1:])
     if p.q_norm is not None:
         q = rms_norm(p.q_norm, q)
     kv = kv_cache if kv_cache is not None else project_cross_kv(p, memory)
-    if x.device.type == "cuda":
+    if x.device.type == "cuda" and not records_grad(q, kv.k, kv.v):
         out = p.attend(q.transpose(1, 2), kv.k, kv.v, causal=False,
                        window=-1).transpose(1, 2)
     else:
         out = _sdpa(q, kv.k.transpose(1, 2), kv.v.transpose(1, 2), None)
     return out.reshape(b, s, -1) @ p.wo.reshape(-1, p.wo.shape[-1])
+
+
+def records_grad(*tensors) -> bool:
+    """Whether autograd records any of the tensors: the attention then
+    takes the differentiable train path, not the forward-only kernel."""
+    return any(t.requires_grad for t in tensors)
 
 
 def _sdpa(q, k, v, mask):

@@ -3,8 +3,10 @@
 The layers are plain functions over parameter holders (``nn.Module``s whose
 tensors carry the reference's names and layouts: ``w_gate [d, f]``,
 ``tok [V, d]`` ...), so `repro_torch.convert` can copy the JAX package's
-parameter pytrees in unchanged.  Parameters are inference tensors
-(``requires_grad=False``): the port serves and does not train yet.
+parameter pytrees in unchanged.  Parameters are made as inference tensors
+(``requires_grad=False``), so serving builds no autograd graph; the trainer
+turns them trainable with ``model.requires_grad_(True)`` and wraps each
+layer in `apply_remat`.
 """
 from __future__ import annotations
 
@@ -14,7 +16,8 @@ from torch import nn
 
 
 def param(t: torch.Tensor) -> nn.Parameter:
-    """An inference parameter: no autograd graph is ever built over it."""
+    """A parameter made as an inference tensor: no autograd graph is built
+    over it until the trainer sets ``requires_grad``."""
     return nn.Parameter(t, requires_grad=False)
 
 
@@ -155,3 +158,38 @@ def cross_entropy(logits, labels, *, ignore_id: int = -1):
     mask = (labels != ignore_id).to(torch.float32)
     nll = (lse - ll) * mask
     return nll.sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+# ---------------------------------------------------------------------------
+# activation checkpointing
+# ---------------------------------------------------------------------------
+
+def _save_matmuls(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of ``dots``: keep matmul outputs."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.bmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def apply_remat(fn, policy: str):
+    """Activation-checkpoint policy for one layer's forward ``fn``.
+
+    none — save everything (no recompute; activation-memory bound)
+    full — save only the layer's inputs; the backward recomputes the rest
+           (``torch.utils.checkpoint``, non-reentrant)
+    dots — matmul outputs (``aten.mm``/``aten.bmm``) are saved, elementwise
+           work is recomputed: the backward runs no forward matmul again.
+    """
+    if policy == "none":
+        return fn
+    from torch.utils import checkpoint as ckpt
+    if policy == "full":
+        return lambda *a, **k: ckpt.checkpoint(fn, *a, use_reentrant=False,
+                                               **k)
+    if policy == "dots":
+        contexts = lambda: ckpt.create_selective_checkpoint_contexts(
+            _save_matmuls)
+        return lambda *a, **k: ckpt.checkpoint(
+            fn, *a, use_reentrant=False, context_fn=contexts, **k)
+    raise ValueError(f"unknown remat policy {policy!r}")

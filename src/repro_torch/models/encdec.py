@@ -21,8 +21,9 @@ from ..configs.base import ArchConfig
 from ..kernels import resolve_device
 from ..layers.attention import (KVCache, cross_attention, init_attention,
                                 init_kv_cache, project_cross_kv)
-from ..layers.common import (SwiGLU, embed, final_logits, init_rms_norm,
-                             normal, rms_norm, swiglu)
+from ..layers.common import (SwiGLU, apply_remat, cross_entropy, embed,
+                             final_logits, init_rms_norm, normal, rms_norm,
+                             swiglu)
 from .lm import default_positions
 
 
@@ -107,21 +108,27 @@ def _need_frames(frames) -> None:
             "passes only tokens, as the serving engine does, has none")
 
 
-def encode(cfg: ArchConfig, params: EncDecLM, frames):
-    """frames: [B, T, D] pre-embedded modality features -> memory."""
+def encode(cfg: ArchConfig, params: EncDecLM, frames, remat: str = "none"):
+    """frames: [B, T, D] pre-embedded modality features -> memory (each
+    block under the ``remat`` policy: training passes ``cfg.remat``)."""
     _need_frames(frames)
     x = frames.to(cfg.pdtype)
     for block in params.enc_blocks:
-        x = block(x)
+        x = apply_remat(block, remat)(x)
     return rms_norm(params.enc_norm, x)
 
 
 def _run_decoder(cfg: ArchConfig, params: EncDecLM, x, positions, memory,
                  cache: EncDecCache | None, cache_pos):
+    """Run the decoder blocks; without a cache (training) each runs under
+    ``cfg.remat``."""
     for i, block in enumerate(params.dec_blocks):
-        x, _ = block(cfg, x, positions, memory,
-                     None if cache is None else cache.self_kv[i],
-                     None if cache is None else cache.cross_kv[i], cache_pos)
+        if cache is None:
+            x, _ = apply_remat(block, cfg.remat)(cfg, x, positions, memory,
+                                                 None, None, None)
+        else:
+            x, _ = block(cfg, x, positions, memory, cache.self_kv[i],
+                         cache.cross_kv[i], cache_pos)
     return x, cache
 
 
@@ -129,12 +136,21 @@ def forward(cfg: ArchConfig, params: EncDecLM, tokens, *, frames=None, **_):
     """Training: frames [B, T, D] + decoder tokens [B, S] -> (logits
     [B, S, V], aux 0)."""
     b, s = tokens.shape
-    memory = encode(cfg, params, frames)
+    memory = encode(cfg, params, frames, cfg.remat)
     x = embed(params.tok, tokens).to(cfg.pdtype)
     positions = default_positions(cfg, b, s, tokens.device)
     x, _ = _run_decoder(cfg, params, x, positions, memory, None, None)
     return final_logits(params, x, tied=cfg.tie_embeddings), \
         torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def loss_fn(cfg: ArchConfig, params: EncDecLM, batch: dict):
+    """(mean token cross-entropy, {"loss"}) of the decoder's
+    ``batch["tokens"]`` against ``batch["labels"]``, encoding
+    ``batch["frames"]``."""
+    logits, _ = forward(cfg, params, batch["tokens"], frames=batch["frames"])
+    loss = cross_entropy(logits, batch["labels"])
+    return loss, {"loss": loss}
 
 
 def init_cache(cfg: ArchConfig, batch: int, cap: int, frames: int,

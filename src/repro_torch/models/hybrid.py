@@ -24,8 +24,9 @@ from torch import nn
 from ..configs.base import ArchConfig
 from ..kernels import resolve_device
 from ..layers.attention import init_attention, init_kv_cache
-from ..layers.common import (SwiGLU, embed, final_logits, init_rms_norm,
-                             normal, rms_norm, swiglu)
+from ..layers.common import (SwiGLU, apply_remat, cross_entropy, embed,
+                             final_logits, init_rms_norm, normal, rms_norm,
+                             swiglu)
 from ..layers.mamba import init_mamba2, init_mamba2_cache, mamba2
 from .lm import default_positions
 
@@ -137,11 +138,16 @@ def _attn_window(cfg: ArchConfig, cap: int) -> int:
 
 
 def _mamba_run(cfg: ArchConfig, blocks, x, caches):
-    new = None if caches is None else []
+    """Run Mamba2 blocks in order; without a cache (training) each runs
+    under ``cfg.remat``."""
+    if caches is None:
+        for block in blocks:
+            x, _ = apply_remat(block, cfg.remat)(cfg, x, None)
+        return x, None
+    new = []
     for i, block in enumerate(blocks):
-        x, c = block(cfg, x, None if caches is None else caches[i])
-        if caches is not None:
-            new.append(c)
+        x, c = block(cfg, x, caches[i])
+        new.append(c)
     return x, new
 
 
@@ -173,6 +179,14 @@ def forward(cfg: ArchConfig, params: HybridLM, tokens, **_):
     x, _ = _run(cfg, params, x, positions, None, None, -1)
     return final_logits(params, x, tied=cfg.tie_embeddings), \
         torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def loss_fn(cfg: ArchConfig, params: HybridLM, batch: dict):
+    """(mean token cross-entropy, {"loss"}) of ``batch["tokens"]`` against
+    ``batch["labels"]``."""
+    logits, _ = forward(cfg, params, batch["tokens"])
+    loss = cross_entropy(logits, batch["labels"])
+    return loss, {"loss": loss}
 
 
 def prefill(cfg: ArchConfig, params: HybridLM, tokens,

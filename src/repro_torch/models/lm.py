@@ -19,8 +19,9 @@ from torch import nn
 from ..configs.base import ArchConfig
 from ..kernels import resolve_device
 from ..layers.attention import KVCache, init_attention, init_kv_cache
-from ..layers.common import (SwiGLU, embed, final_logits, init_rms_norm,
-                             normal, rms_norm, swiglu)
+from ..layers.common import (SwiGLU, apply_remat, cross_entropy, embed,
+                             final_logits, init_rms_norm, normal, rms_norm,
+                             swiglu)
 from ..layers.moe import MoE, moe_ffn
 from ..layers.moe_ep import moe_ffn_ep
 
@@ -225,12 +226,17 @@ def _run_layers(cfg: ArchConfig, params: DecoderLM, x, positions, cache,
                 cache_pos):
     """Run the units in order; returns (x, the units' summed aux loss: a
     Python 0.0 while only dense units ran, so serving a dense model adds
-    no device op for it)."""
+    no device op for it).  Without a cache (training) each unit runs under
+    ``cfg.remat`` (`apply_remat`)."""
     windows, thetas = layer_schedule(cfg, n_units(cfg))
     aux = 0.0
     for i, unit in enumerate(params.layers):
-        x, _, a = unit(cfg, x, positions, windows[i], thetas[i],
-                       None if cache is None else cache[i], cache_pos)
+        if cache is None:
+            x, _, a = apply_remat(unit, cfg.remat)(
+                cfg, x, positions, windows[i], thetas[i], None, None)
+        else:
+            x, _, a = unit(cfg, x, positions, windows[i], thetas[i],
+                           cache[i], cache_pos)
         aux = aux + a
     return x, aux
 
@@ -245,6 +251,17 @@ def forward(cfg: ArchConfig, params: DecoderLM, tokens, *, vision_embeds=None,
     x, aux = _run_layers(cfg, params, x, positions, None, None)
     return final_logits(params, x, tied=cfg.tie_embeddings), \
         torch.as_tensor(aux, dtype=torch.float32, device=x.device)
+
+
+def loss_fn(cfg: ArchConfig, params: DecoderLM, batch: dict):
+    """(mean token cross-entropy + 0.01 * aux, {"loss", "aux"}) of
+    ``batch["tokens"]`` against ``batch["labels"]`` (plus the batch's
+    ``vision_embeds`` and ``positions`` for vlm)."""
+    logits, aux = forward(cfg, params, batch["tokens"],
+                          vision_embeds=batch.get("vision_embeds"),
+                          positions=batch.get("positions"))
+    loss = cross_entropy(logits, batch["labels"])
+    return loss + 0.01 * aux, {"loss": loss, "aux": aux}
 
 
 # -- serving ----------------------------------------------------------------

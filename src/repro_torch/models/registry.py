@@ -2,7 +2,7 @@
 
 Every family of the reference is here: dense, moe and vlm on
 `repro_torch.models.lm`, ssm on `.ssm`, hybrid on `.hybrid` and encdec on
-`.encdec`.
+`.encdec`, each with its training loss (`loss_fn`).
 """
 from __future__ import annotations
 
@@ -28,6 +28,19 @@ def model_module(cfg: ArchConfig) -> ModuleType:
 def init_params(cfg: ArchConfig, generator: torch.Generator, device=None):
     """Random parameters drawn from ``generator`` on ``device``."""
     return model_module(cfg).init_params(cfg, generator, device)
+
+
+def param_shapes(cfg: ArchConfig):
+    """The model on the meta device: every parameter's shape and dtype,
+    with no allocation and no draw from a generator."""
+    return model_module(cfg).init_params(cfg, None, "meta")
+
+
+def loss_fn(cfg: ArchConfig, params, batch: dict):
+    """(the loss to differentiate, metrics) of one batch: ``tokens`` and
+    ``labels``, plus ``vision_embeds``/``positions`` (vlm) or ``frames``
+    (encdec)."""
+    return model_module(cfg).loss_fn(cfg, params, batch)
 
 
 def prefill(cfg: ArchConfig, params, batch: dict,

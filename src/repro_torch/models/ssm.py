@@ -13,8 +13,8 @@ from torch import nn
 
 from ..configs.base import ArchConfig
 from ..kernels import resolve_device
-from ..layers.common import (embed, final_logits, init_rms_norm, normal,
-                             rms_norm)
+from ..layers.common import (apply_remat, cross_entropy, embed,
+                             final_logits, init_rms_norm, normal, rms_norm)
 from ..layers.mamba import MambaCache, init_mamba1, init_mamba1_cache, mamba1
 
 
@@ -68,21 +68,34 @@ def init_cache(cfg: ArchConfig, batch: int, cap: int = 0,
                               dev) for _ in range(cfg.n_layers)]
 
 
-def _run_blocks(params: MambaLM, x, cache):
-    new_cache = None if cache is None else []
+def _run_blocks(params: MambaLM, x, cache, remat: str = "none"):
+    """Run the blocks in order; without a cache (training) each block runs
+    under the ``remat`` policy."""
+    if cache is None:
+        for block in params.blocks:
+            x, _ = apply_remat(block, remat)(x, None)
+        return x, None
+    new_cache = []
     for i, block in enumerate(params.blocks):
-        x, c = block(x, None if cache is None else cache[i])
-        if cache is not None:
-            new_cache.append(c)
+        x, c = block(x, cache[i])
+        new_cache.append(c)
     return x, new_cache
 
 
 def forward(cfg: ArchConfig, params: MambaLM, tokens, **_):
     """tokens [B, S] -> (logits [B, S, V], aux 0)."""
     x = embed(params.tok, tokens).to(cfg.pdtype)
-    x, _ = _run_blocks(params, x, None)
+    x, _ = _run_blocks(params, x, None, cfg.remat)
     return final_logits(params, x, tied=cfg.tie_embeddings), \
         torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def loss_fn(cfg: ArchConfig, params: MambaLM, batch: dict):
+    """(mean token cross-entropy, {"loss"}) of ``batch["tokens"]`` against
+    ``batch["labels"]``."""
+    logits, _ = forward(cfg, params, batch["tokens"])
+    loss = cross_entropy(logits, batch["labels"])
+    return loss, {"loss": loss}
 
 
 def prefill(cfg: ArchConfig, params: MambaLM, tokens,

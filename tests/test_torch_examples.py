@@ -27,3 +27,20 @@ def test_serve_shared_experts_on_the_cpu():
                          "holds.  OK")
     assert "tenant A (revoked)     : denied expert fetches= 48" in \
         proc.stdout
+
+
+def test_train_isolated_tenants_on_the_cpu():
+    proc = subprocess.run(
+        [sys.executable, "-c", BLOCK_JAX,
+         str(REPO / "examples" / "torch_train_isolated_tenants.py"),
+         "--device", "cpu"],
+        cwd=REPO, env={"PYTHONPATH": str(REPO / "src"),
+                       "PATH": "/usr/bin:/bin"},
+        capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    lines = proc.stdout.splitlines()
+    assert lines[-1] == "train_isolated_tenants OK"
+    assert lines[-2] == ("checkpoint leaf encrypts/decrypts with the host "
+                         "key. OK")
+    assert "restored checkpoint at step 40; continuing 10 more steps" in \
+        lines

@@ -1,7 +1,8 @@
 """Import hygiene of the port: nothing under ``src/repro_torch/``, and not
 ``chip_smoke.py``, imports JAX or the JAX package; importing the port's
-core, ops, models and serving launcher loads neither; and the entry points
-refuse to run without CUDA unless the caller asks for the CPU."""
+core, ops, models, serving and training launchers loads neither; and the
+entry points refuse to run without CUDA unless the caller asks for the
+CPU."""
 import ast
 import subprocess
 import sys
@@ -28,6 +29,7 @@ def test_port_sources_import_neither_jax_nor_the_jax_package():
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     files.append(REPO / "examples" / "torch_serve_shared_experts.py")
+    files.append(REPO / "examples" / "torch_train_isolated_tenants.py")
     assert len(files) > 15
     for f in files:
         bad = _imported_roots(f) & set(FORBIDDEN)
@@ -37,7 +39,8 @@ def test_port_sources_import_neither_jax_nor_the_jax_package():
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch.core, repro_torch.kernels.ops, "
             "repro_torch.convert, repro_torch.configs, "
-            "repro_torch.models.registry, repro_torch.launch.serve\n"
+            "repro_torch.models.registry, repro_torch.launch.serve, "
+            "repro_torch.launch.train\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]\n"
             "assert not bad, bad\n")
@@ -87,6 +90,38 @@ def test_model_family_modules_import_with_jax_blocked():
                                "PATH": "/usr/bin:/bin"},
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_training_modules_import_with_jax_blocked():
+    """The data pipeline, the optimizer, the step functions and the
+    launcher import while any import of JAX or the JAX package raises."""
+    mods = ["repro_torch.data", "repro_torch.data.pipeline",
+            "repro_torch.optim", "repro_torch.optim.adamw",
+            "repro_torch.launch.steps", "repro_torch.launch.train",
+            "repro_torch.layers.common", "repro_torch.convert"]
+    code = ("import importlib, sys\n"
+            f"for name in {FORBIDDEN!r}:\n"
+            "    sys.modules[name] = None\n"
+            f"for m in {mods!r}:\n"
+            "    importlib.import_module(m)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          env={"PYTHONPATH": str(REPO / "src"),
+                               "PATH": "/usr/bin:/bin"},
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_training_entry_points_need_cuda_unless_asked_for_the_cpu(
+        monkeypatch):
+    from repro_torch.configs import ARCHS, smoke_config
+    from repro_torch.launch import train
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--steps", "1", "--batch", "2", "--seq", "8"])
+    model, opt = train.init_model(smoke_config(ARCHS["qwen1.5-0.5b"]),
+                                  "cpu")
+    assert opt.step.device.type == "cpu"
+    assert all(p.requires_grad for p in model.parameters())
 
 
 def test_entry_points_need_cuda_unless_asked_for_the_cpu(monkeypatch):

@@ -2,9 +2,10 @@
 fault-tolerant runtime (`repro_torch.runtime.fault_tolerance`) against the
 JAX package.
 
-The store tests of ``tests/test_runtime.py`` run on tensor trees; a
-checkpoint saved by either package restores in the other bit for bit (the
-same manifest, leaf paths and files); `ResilientLoop`, `FailureDetector` and
+The store tests of ``tests/test_runtime.py`` run on tensor trees, bf16
+leaves and NamedTuple training states included; a checkpoint saved by
+either package restores in the other bit for bit (the same manifest, leaf
+paths and files); `ResilientLoop`, `FailureDetector` and
 `StragglerMonitor` give the reference's reports and flags."""
 import json
 import os
@@ -16,9 +17,11 @@ import numpy as np
 import pytest
 import torch
 
+from repro import optim as jopt
 from repro.checkpointing import store as jstore
 from repro.runtime import fault_tolerance as jft
 from repro_torch.checkpointing import store
+from repro_torch.optim import AdamWState
 from repro_torch.runtime import fault_tolerance as tft
 from repro_torch.runtime import ResilientLoop, StragglerMonitor
 
@@ -121,9 +124,89 @@ def test_state_dict_and_numpy_leaves(tmp_path):
                                            "b": 0.0})
     assert got["a"].dtype == np.int64 and got["a"].tolist() == [0, 1, 2, 3, 4]
     assert got["b"] == 2.5
-    with pytest.raises(TypeError):
-        store.save(str(tmp_path), 3,
-                   {"x": torch.zeros(2, dtype=torch.bfloat16)})
+    bf = {"x": torch.randn(3, 2).to(torch.bfloat16)}
+    store.save(str(tmp_path), 3, bf)
+    got, _ = store.restore(str(tmp_path), {"x": torch.zeros(3, 2,
+                                                         dtype=torch.bfloat16)})
+    _assert_trees_equal(got, bf)
+
+
+def _train_tree(seed=0):
+    """A training state as the trainer saves it: (bf16 parameters by name,
+    an `AdamWState` with f32 moments)."""
+    g = torch.Generator().manual_seed(seed)
+    params = OrderedDict(
+        (n, torch.randn(*s, generator=g).to(torch.bfloat16))
+        for n, s in (("tok", (8, 4)), ("layers.0.attn.wq", (4, 2, 2)),
+                     ("final_norm", (4,))))
+    return params, AdamWState(
+        step=torch.tensor(5, dtype=torch.int32),
+        mu=OrderedDict((n, torch.randn(p.shape, generator=g))
+                       for n, p in params.items()),
+        nu=OrderedDict((n, torch.rand(p.shape, generator=g))
+                       for n, p in params.items()))
+
+
+def test_bf16_and_namedtuple_round_trip(tmp_path):
+    """NamedTuple fields are walked in order with ``.field`` paths (as
+    ``jax.tree_util.keystr`` writes them) and restored as the same type;
+    bf16 leaves come back bit for bit."""
+    t = _train_tree(1)
+    h = store.save(str(tmp_path), 25, t, blocking=False)
+    t[0]["tok"].add_(1.0)           # an in-place update after save returns
+    h.join()
+    paths = [m["path"] for m in _manifest(str(tmp_path), 25)["leaves"]]
+    assert paths == ["[0]['tok']", "[0]['layers.0.attn.wq']",
+                     "[0]['final_norm']", "[1].step",
+                     "[1].mu['tok']", "[1].mu['layers.0.attn.wq']",
+                     "[1].mu['final_norm']", "[1].nu['tok']",
+                     "[1].nu['layers.0.attn.wq']", "[1].nu['final_norm']"]
+    assert [m["dtype"] for m in _manifest(str(tmp_path), 25)["leaves"]][:3] \
+        == ["bfloat16"] * 3
+    got, step = store.restore(str(tmp_path), _train_tree(2))
+    assert step == 25 and isinstance(got[1], AdamWState)
+    want = _train_tree(1)
+    _assert_trees_equal(got, want)
+    for n in want[0]:
+        assert torch.equal(got[0][n].view(torch.int16),
+                           want[0][n].view(torch.int16))
+
+
+def test_reference_bf16_checkpoint_restores_bit_for_bit(tmp_path):
+    """A bf16 training state written by the JAX package (``|V2`` words,
+    manifest dtype "bfloat16") restores in the port bit for bit, and the
+    port writes the same bytes.  (The reference's own restore of such a
+    leaf raises: ROADMAP defect 8.)"""
+    t = _train_tree(3)
+    jt = ({n: jnp.asarray(p.float().numpy(), jnp.bfloat16)
+           for n, p in t[0].items()},
+          jopt.AdamWState(jnp.asarray(5, jnp.int32),
+                          {n: jnp.asarray(m.numpy()) for n, m in t[1].mu.items()},
+                          {n: jnp.asarray(m.numpy()) for n, m in t[1].nu.items()}))
+    # the reference's dicts walk in sorted key order: plain dicts here too
+    plain = lambda tt: (dict(tt[0]), AdamWState(tt[1].step, dict(tt[1].mu),
+                                                 dict(tt[1].nu)))
+    jd, td = str(tmp_path / "jax"), str(tmp_path / "port")
+    jstore.save(jd, 4, jt)
+    store.save(td, 4, plain(t))
+    assert _manifest(jd, 4) == _manifest(td, 4)
+    n_leaves = len(_manifest(jd, 4)["leaves"])
+    for i in range(n_leaves):
+        a = (tmp_path / "jax" / "step_4" / f"leaf_{i}.npy").read_bytes()
+        b = (tmp_path / "port" / "step_4" / f"leaf_{i}.npy").read_bytes()
+        assert a == b, i
+    got, _ = store.restore(jd, plain(_train_tree(4)))
+    for n in t[0]:
+        assert got[0][n].dtype == torch.bfloat16
+        assert torch.equal(got[0][n].view(torch.int16),
+                           t[0][n].view(torch.int16))
+        assert torch.equal(got[1].mu[n], t[1].mu[n])
+    assert int(got[1].step) == 5
+    # a bf16 leaf restores into an f32 leaf of `like` exactly, too
+    f32, _ = store.restore(jd, ({n: torch.zeros(p.shape)
+                                 for n, p in t[0].items()},
+                                plain(_train_tree())[1]))
+    assert torch.equal(f32[0]["tok"], t[0]["tok"].float())
 
 
 # ---------------------------------------------------------------------------
