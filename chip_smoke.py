@@ -62,6 +62,14 @@ CUDA toolkit.  Phases, each reported on its own line:
      probability gap under ``ROUTER_FLIP_GAP`` is the router's
      discontinuity (the per-layer attention check then stands), a flip at
      a larger gap a fault;
+ 8b. main path 5b, the mesh — the same olmoe parameters on the 1x1
+     ("data", "model") mesh in a one-rank NCCL process group: a prefill at
+     batch 4 and 8 greedy decode steps, bit-identical to the same steps
+     without a mesh (else the first module that differs is named), every
+     MoE layer through the model-axis body (its ``all_reduce`` calls
+     counted), the flash kernel launched; the decode step's wall under the
+     mesh with the layers' ``constrain`` calls and without them;
+     ``validate_specs`` of every arch on both production meshes;
   9. the family phase — falcon-mamba-7b at full width with 8 of its 64
      layers (no kernel: held to a ``device="cpu"`` run on the same
      weights) and zamba2-1.2b at full width and depth, both served through
@@ -75,15 +83,17 @@ CUDA toolkit.  Phases, each reported on its own line:
      weights and batch (loss, grad-norm, every gradient and every
      parameter's step held by norm); then the launcher's loop on
      qwen1.5-0.5b ``--preset full`` (bf16 parameters, f32 moments, remat
-     full) at batch 8 x 256 for 50 steps (every parameter has a non-zero
-     gradient after step 1, the loss DECREASED, no flash launch: training
-     attends through the differentiable path), an asynchronous checkpoint
-     at step 25 restored from LATEST bit for bit into a fresh model that
-     finishes the run and trains 10 more steps, and the restored
-     checkpoint's first leaf encrypted and decrypted with the host key
-     through the memcrypt kernel; then the step's wall, device time by op
-     (the remat recompute by a profiler scope), tokens/s, peak memory and
-     FLOP share.
+     full) at batch 8 x 256 for 50 steps on the 1x1 NCCL mesh, its state
+     placed by the rule engine, its first losses equal to a meshless
+     run's bit for bit (every parameter has a non-zero gradient after
+     step 1, the loss DECREASED, no flash launch: training attends through
+     the differentiable path), an asynchronous checkpoint at step 25
+     restored from LATEST bit for bit and re-placed onto the mesh by
+     ``elastic_reshard`` into a fresh model that finishes the run and
+     trains 10 more steps, and the re-placed checkpoint's first leaf
+     encrypted and decrypted with the host key through the memcrypt
+     kernel; then the step's wall, device time by op (the remat recompute
+     by a profiler scope), tokens/s, peak memory and FLOP share.
   Each main path's kernel launch counts are zeroed just before it and read
   just after: each of its kernels must have launched.
 
@@ -104,11 +114,13 @@ import shutil
 import subprocess
 import sys
 import time
+from collections import OrderedDict
 from dataclasses import replace
 from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -127,9 +139,15 @@ from repro_torch.kernels import fabric_egress as fe  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import memcrypt as mc  # noqa: E402
 from repro_torch.kernels import permcheck as pc  # noqa: E402
-from repro_torch.launch import train  # noqa: E402
+from repro_torch.checkpointing import elastic_reshard, store  # noqa: E402
+from repro_torch.launch import activations, train  # noqa: E402
+from repro_torch.launch import mesh as mesh_mod  # noqa: E402
+from repro_torch.launch import sharding as sh  # noqa: E402
+from repro_torch.launch.activations import use_mesh  # noqa: E402
 from repro_torch.launch.serve import ServeEngine, run_demo  # noqa: E402
 from repro_torch.launch.steps import build_train_step  # noqa: E402
+from repro_torch.layers import attention as attn_mod  # noqa: E402
+from repro_torch.layers import mamba as mamba_mod  # noqa: E402
 from repro_torch.layers import moe_ep  # noqa: E402
 from repro_torch.layers.attention import Attention  # noqa: E402
 from repro_torch.memsim.clock import ClockedFabric, TimingConfig  # noqa: E402
@@ -1252,13 +1270,15 @@ def decode_step_profile(engine, tenant: str, gen: int, prompts) -> dict:
                 decode_device_ops=device_ops[:10])
 
 
-def serve_main_path(dev, arch: str, label: str) -> dict:
+def serve_main_path(dev, arch: str, label: str, then=None) -> dict:
     """A decoder LM (qwen3-4b, olmoe-1b-7b) at full width and depth, f32
     (reference defect 5), through the serving CLI's sequence
     (`serve_family`); then one decode step's launches, wall time, device
     busy time and device time by op (for MoE beside the expert-weight
     floor: every expert read once a step), and the first group's logits
-    against a plain-attention run."""
+    against a plain-attention run.  ``then(cfg, params)``, if given, runs
+    last on the same parameters (its result under ``"then"``; its wall is
+    not the phase's)."""
     t0 = time.perf_counter()
     cfg = replace(ARCHS[arch], param_dtype="float32")
     params, engine, demo, out = serve_family(
@@ -1307,13 +1327,17 @@ def serve_main_path(dev, arch: str, label: str) -> dict:
     tok_s = SERVE_BATCH * SERVE_PROMPT * 1e3 / check["prefill_ms"]
     log(f"{label} prefill: {SERVE_BATCH} x {SERVE_PROMPT} tokens in "
         f"{check['prefill_ms']:.1f} ms ({tok_s:.0f} tokens/s)")
-    del params, engine, demo
+    del engine, demo
     free_card()
     wall = time.perf_counter() - t0
+    after = then(cfg, params) if then is not None else None
+    del params
+    free_card()
     log(f"{label}: phase wall {wall:.3f} s; cut: f32 parameters (reference "
         f"defect 5)")
     return dict(out, **prof, **check, **floor, prefill_tokens_per_s=tok_s,
-                wall_s=wall, cut="f32 parameters (reference defect 5)")
+                wall_s=wall, cut="f32 parameters (reference defect 5)",
+                then=after)
 
 # -- the fault-tolerance and clocked-timing slice ---------------------------
 
@@ -1891,6 +1915,248 @@ def shared_experts_path(dev) -> dict:
                                        "b_after", "fetches_per_tenant")})
 
 
+# -- the mesh and sharding slice ----------------------------------------------
+
+# Main path 5b: main path 5's olmoe-1b-7b parameters on the 1x1 ("data",
+# "model") mesh in a one-rank NCCL process group: prefill and greedy decode
+# steps at batch 4, once without a mesh and once under it, in one process.
+MESH_DECODE_STEPS = 8
+MESH_TIMED_STEPS = 8        # decode steps per timing turn (4 turns, ABBA)
+
+
+def _decode_run(cfg, params, toks, steps: int):
+    """Prefill ``toks`` and take ``steps`` greedy decode steps: (the
+    prefill's and each step's last logits, the tokens fed, the cache)."""
+    lg, cache = registry.prefill(cfg, params, {"tokens": toks},
+                                 cache_dtype=torch.float32,
+                                 cap=toks.shape[1] + steps)
+    logits, fed = [lg[:, -1]], []
+    for i in range(steps):
+        nxt = logits[-1].argmax(-1)[:, None].to(torch.int32)
+        fed.append(nxt)
+        lg, _ = registry.decode_step(cfg, params, cache, nxt,
+                                     toks.shape[1] + i)
+        logits.append(lg[:, -1])
+    torch.cuda.synchronize()
+    return logits, fed, cache
+
+
+def first_divergence(cfg, params, toks, mesh) -> str:
+    """The first module (in call order) whose output differs between the
+    prefill without a mesh and under ``mesh``: where a mismatch starts."""
+    outs = {}
+
+    def hook(name):
+        def record(_mod, _args, out):
+            t = out[0] if isinstance(out, tuple) else out
+            if isinstance(t, torch.Tensor):
+                outs.setdefault(name, []).append(t.detach().clone())
+        return record
+
+    handles = [m.register_forward_hook(hook(n))
+               for n, m in params.named_modules() if n]
+    try:
+        runs = []
+        for m in (None, mesh):
+            outs = {}
+            with use_mesh(m):
+                registry.prefill(cfg, params, {"tokens": toks},
+                                 cache_dtype=torch.float32,
+                                 cap=toks.shape[1])
+            runs.append(outs)
+    finally:
+        for h in handles:
+            h.remove()
+    for name, got in runs[0].items():
+        other = runs[1].get(name, [])
+        if len(other) != len(got) or not all(
+                torch.equal(a, b) for a, b in zip(got, other)):
+            return name
+    return "no module output (the final norm or the unembedding)"
+
+
+def validate_every_arch() -> dict:
+    """`validate_specs` of every arch's parameters on both production
+    meshes (abstract: host work only); each must come back empty."""
+    meshes = {"pod": mesh_mod.make_abstract_mesh(mesh_mod.POD_SHAPE,
+                                                 mesh_mod.POD_AXES),
+              "multipod": mesh_mod.make_abstract_mesh(
+                  mesh_mod.MULTIPOD_SHAPE, mesh_mod.MULTIPOD_AXES)}
+    out = {}
+    for arch, cfg in ARCHS.items():
+        shapes = registry.param_shapes(cfg)
+        for kind, am in meshes.items():
+            errs = sh.validate_specs(
+                shapes, sh.param_spec_tree(cfg, am, shapes), am)
+            if errs:
+                raise AssertionError(f"mesh: {arch} on the {kind} mesh: "
+                                     f"{len(errs)} specs do not divide: "
+                                     f"{errs[:3]}")
+            out[f"{arch}/{kind}"] = len(list(shapes.parameters()))
+    return out
+
+
+COLLECTIVE_REPS = 200
+
+
+def collective_host_us(mesh, dev, d_model: int) -> dict:
+    """Host microseconds per call of each of the MoE bodies' collectives
+    at a decode step's sizes (y [batch, d_model], a scalar aux), alone,
+    after a warm-up; the device is synchronised only at the end.  The
+    all_reduce also where autograd records its operand (the
+    differentiable path training takes)."""
+    y = torch.randn(SERVE_BATCH, d_model, device=dev)
+    y_grad = y.clone().requires_grad_(True)
+    aux = torch.ones((), device=dev)
+    model = moe_ep._mesh_axis(mesh, ("model",))
+    data = moe_ep._mesh_axis(mesh, ("data",))
+    calls = {"all_reduce y": lambda: moe_ep._all_reduce(y, model),
+             "all_reduce y, autograd recording": lambda: moe_ep._all_reduce(
+                 y_grad, model),
+             "pmean aux": lambda: moe_ep._pmean(aux.clone(), model),
+             "all_gather y": lambda: moe_ep._all_gather(y, data),
+             "broadcast aux": lambda: moe_ep._broadcast_first(aux.clone(),
+                                                              data),
+             "mesh axis lookup": lambda: moe_ep._mesh_axis(mesh,
+                                                           ("model",))}
+    out = {}
+    for name, fn in calls.items():
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(COLLECTIVE_REPS):
+            fn()
+        out[name] = (time.perf_counter() - t) / COLLECTIVE_REPS * 1e6
+        torch.cuda.synchronize()
+    return out
+
+
+def _timed_decode_ms(cfg, params, cache, toks, pos: int) -> list:
+    out = []
+    for i in range(MESH_TIMED_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        registry.decode_step(cfg, params, cache, toks, pos + i)
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t) * 1e3)
+    return out
+
+
+def mesh_path(dev, cfg, params, smi: str) -> dict:
+    """Main path 5b: olmoe-1b-7b at full width and depth (main path 5's
+    parameters) prefilled at batch 4 x ``SERVE_PROMPT`` and decoded
+    ``MESH_DECODE_STEPS`` greedy steps without a mesh and under the 1x1
+    NCCL mesh: logits and tokens bit-identical (else the first module that
+    differs is named), every MoE layer's model-axis body reducing its
+    output and aux (``all_reduce`` calls counted), the flash kernel
+    launched; the decode step's wall under the mesh with the layers'
+    ``constrain`` calls and with them replaced by a pass-through (ABBA
+    turns); ``validate_specs`` of every arch on both production meshes.
+    The process group is destroyed at the end."""
+    t0 = time.perf_counter()
+    if dist.is_initialized():
+        raise AssertionError("mesh: a process group exists before the phase")
+    mesh = mesh_mod.make_smoke_mesh(dev)
+    backend = dist.get_backend()
+    if "nccl" not in backend or dist.get_world_size() != 1:
+        raise AssertionError(f"mesh: backend {backend}, world "
+                             f"{dist.get_world_size()}")
+    try:
+        rng = np.random.default_rng(SEED + 20)
+        toks = torch.from_numpy(rng.integers(
+            3, cfg.vocab - 1, (SERVE_BATCH, SERVE_PROMPT)).astype(
+                np.int32)).to(dev)
+        set_attend(params, fa.flash_attention)
+        base, base_fed, _ = _decode_run(cfg, params, toks, MESH_DECODE_STEPS)
+        reset_launches()
+        moe_ep.reset_collectives()
+        t = time.perf_counter()
+        with use_mesh(mesh):
+            got, got_fed, cache = _decode_run(cfg, params, toks,
+                                              MESH_DECODE_STEPS)
+        mesh_run_s = time.perf_counter() - t
+        counts, coll = dict(launches), dict(moe_ep.collectives)
+        differ = [i for i, (a, b) in enumerate(zip(base, got))
+                  if not torch.equal(a, b)]
+        fed_equal = all(torch.equal(a, b) for a, b in zip(base_fed, got_fed))
+        if differ or not fed_equal:
+            where = first_divergence(cfg, params, toks, mesh)
+            raise AssertionError(
+                f"mesh: logits differ under the 1x1 mesh at steps {differ} "
+                f"(tokens equal: {fed_equal}); first differing module in "
+                f"the prefill: {where}")
+        n_moe = sum(1 for u in params.layers if hasattr(u, "moe"))
+        calls = 1 + MESH_DECODE_STEPS
+        if counts["flash_attention"] == 0:
+            raise AssertionError("mesh: flash_attention never launched under "
+                                 "the mesh")
+        if coll["all_reduce"] != 2 * n_moe * calls or \
+                coll["all_gather"] != n_moe * calls:
+            raise AssertionError(f"mesh: collectives {coll} for {n_moe} MoE "
+                                 f"layers x {calls} calls")
+        log(f"mesh: olmoe-1b-7b on the 1x1 mesh {mesh} ({backend}, world "
+            f"{dist.get_world_size()}): prefill {SERVE_BATCH} x "
+            f"{SERVE_PROMPT} + {MESH_DECODE_STEPS} greedy decode steps "
+            f"bit-identical to the same steps without a mesh ({len(base)} "
+            f"logits tensors, tokens {[int(t[0, 0]) for t in got_fed]} in "
+            f"row 0); launches {counts}; collectives {coll} ({n_moe} MoE "
+            f"layers: all_reduce of y and aux each call); run "
+            f"{mesh_run_s:.3f} s")
+
+        # the decode step's wall under the mesh, with the constrain calls
+        # and with the layers' constrain replaced by a pass-through
+        nxt = got_fed[-1]
+        pos = SERVE_PROMPT        # rewrites the cache's first decode slots
+        no_calls = lambda x, *spec: x
+        turns = {"with constrain": [], "without constrain": []}
+        meshless = _timed_decode_ms(cfg, params, cache, nxt, pos)
+        with use_mesh(mesh):
+            _timed_decode_ms(cfg, params, cache, nxt, pos)     # warm-up
+            for kind in ("with constrain", "without constrain",
+                         "without constrain", "with constrain"):
+                if kind == "without constrain":
+                    attn_mod.constrain, mamba_mod.constrain = no_calls, \
+                        no_calls
+                try:
+                    turns[kind] += _timed_decode_ms(cfg, params, cache, nxt,
+                                                    pos)
+                finally:
+                    attn_mod.constrain = mamba_mod.constrain = \
+                        activations.constrain
+        med = {k: float(np.median(v)) for k, v in turns.items()}
+        med["no mesh"] = float(np.median(meshless))
+        n_calls = 8 * len(attention_modules(params))
+        log(f"mesh decode step on {smi} (batch {SERVE_BATCH}, median of "
+            f"{2 * MESH_TIMED_STEPS} steps in ABBA turns): "
+            f"{ {k: round(v, 3) for k, v in med.items()} } ms; "
+            f"{n_calls} constrain calls a step (8 per attention layer)")
+        del cache
+        coll_us = collective_host_us(mesh, dev, cfg.d_model)
+        log(f"mesh: host us per collective call on one NCCL rank (decode "
+            f"step sizes, {COLLECTIVE_REPS} calls each): "
+            f"{ {k: round(v, 1) for k, v in coll_us.items()} }")
+        t = time.perf_counter()
+        validated = validate_every_arch()
+        validate_s = time.perf_counter() - t
+        log(f"mesh: validate_specs empty for every arch's parameters on "
+            f"both production meshes ({len(validated)} (arch, mesh) pairs, "
+            f"host only, {validate_s:.2f} s)")
+    finally:
+        dist.destroy_process_group()
+    if dist.is_initialized():
+        raise AssertionError("mesh: the process group outlived the phase")
+    wall = time.perf_counter() - t0
+    log(f"mesh: phase wall {wall:.3f} s on {smi}")
+    return dict(launches=counts, collectives=coll, backend=backend,
+                decode_steps=MESH_DECODE_STEPS, moe_layers=n_moe,
+                mesh_run_s=mesh_run_s, decode_step_ms=turns,
+                decode_step_median_ms=med, constrain_calls=n_calls,
+                collective_host_us=coll_us,
+                validated=validated,
+                validate_s=validate_s, wall_s=wall)
+
+
 # -- the training slice --------------------------------------------------------
 
 # Main path 6: the launcher's loop on qwen1.5-0.5b at full width and depth
@@ -1902,6 +2168,7 @@ TRAIN_BATCH, TRAIN_SEQ = 8, 256
 TRAIN_STEPS, TRAIN_CKPT_AT, TRAIN_MORE = 50, 25, 10
 TRAIN_LR, TRAIN_WARMUP = 3e-4, 20
 TRAIN_PROFILE_STEPS = 1
+TRAIN_MESHLESS_STEPS = 3    # the meshless run the mesh run's losses must equal
 HOST_KEY = dict(key0=0x5EC2E7, key1=0x7E9A27)   # the reference example's
 # (a): one step of the full-width model cut to 2 layers, f32, on the card
 # and on the CPU from the same weights and batch.  The devices sum in
@@ -2087,29 +2354,61 @@ def profile_train_steps(cfg, model, opt, data, step_fn, first: int,
 
 
 def training_path(dev, smi: str) -> dict:
-    """Main path 6: (b) the launcher's loop (`launch.train.train_loop`) on
-    qwen1.5-0.5b ``--preset full`` at batch 8 x 256 for 50 steps, (c) an
-    asynchronous checkpoint at step 25 restored from LATEST into a fresh
-    model and optimizer bit for bit, the run resumed from it to step 50,
-    then 10 more steps, (d) the restored checkpoint's first leaf through
-    the memcrypt kernel; (e) the step's wall, device time by op, tokens/s,
-    peak memory and FLOP share, each beside the card's name and limit."""
+    """Main path 6, on the launcher's 1x1 NCCL mesh: (b) the launcher's
+    loop (`launch.train.train_loop`) on qwen1.5-0.5b ``--preset full`` at
+    batch 8 x 256 for 50 steps, its state placed by the rule engine
+    (`train.mesh_specs`, `train.place_state`) and its steps under the mesh,
+    the first ``TRAIN_MESHLESS_STEPS`` losses equal to a meshless run's bit
+    for bit; (c) an asynchronous checkpoint at step 25 restored from LATEST
+    into a fresh model and optimizer bit for bit, re-placed onto the mesh
+    by `elastic_reshard` (every DTensor equal to the restored leaf), the
+    run resumed from it to step 50, then 10 more steps; (d) the re-placed
+    checkpoint's first leaf through the memcrypt kernel (its local tensor;
+    the wrapper refuses the DTensor); (e) the step's wall, device time by
+    op, tokens/s, peak memory and FLOP share, each beside the card's name
+    and limit.  The process group is destroyed at the end."""
     t0 = time.perf_counter()
     cfg = train.preset_config(TRAIN_ARCH, "full")
     ckpt_dir = ROOT / "build" / "train_ckpt"
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     free_card()
-    torch.cuda.reset_peak_memory_stats()
-    model, opt = train.init_model(cfg, dev, SEED)
-    n_params = sum(p.numel() for p in model.parameters())
     data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
                                   global_batch=TRAIN_BATCH))
     step_fn = build_train_step(cfg, peak_lr=TRAIN_LR, warmup=TRAIN_WARMUP,
                                total_steps=max(TRAIN_STEPS, 100))
-    loop = functools.partial(
+    plain_loop = functools.partial(
         train.train_loop, cfg, data=data, step_fn=step_fn, device=dev,
         log_every=5, last_step=TRAIN_STEPS - 1,
         log=lambda m: log(f"train: {m}"))
+    # the meshless run's first steps, from the same seed
+    model, opt = train.init_model(cfg, dev, SEED)
+    meshless = plain_loop(model=model, opt=opt,
+                          steps=range(TRAIN_MESHLESS_STEPS),
+                          log=lambda m: log(f"train meshless: {m}"))["losses"]
+    del model, opt
+    free_card()
+    if dist.is_initialized():
+        raise AssertionError("train: a process group exists before the "
+                             "phase")
+    mesh = mesh_mod.make_smoke_mesh(dev)
+    try:
+        return _training_on_mesh(dev, smi, cfg, data, step_fn, plain_loop,
+                                 mesh, meshless, ckpt_dir, t0)
+    finally:
+        dist.destroy_process_group()
+
+
+def _training_on_mesh(dev, smi, cfg, data, step_fn, plain_loop, mesh,
+                      meshless, ckpt_dir, t0) -> dict:
+    def loop(**kw):
+        with use_mesh(mesh):
+            return plain_loop(**kw)
+
+    torch.cuda.reset_peak_memory_stats()
+    model, opt = train.init_model(cfg, dev, SEED)
+    n_params = sum(p.numel() for p in model.parameters())
+    pspecs, ospecs = train.mesh_specs(cfg, mesh, model, opt)
+    opt = train.place_state(model, opt, mesh, pspecs, ospecs)
     reset_launches()
     t_run = time.perf_counter()
     # (b) step 0 alone: after it every parameter has a non-zero gradient
@@ -2124,6 +2423,13 @@ def training_path(dev, smi: str) -> dict:
     t = time.perf_counter()
     run1 = loop(model=model, opt=run0["opt"], steps=range(1, TRAIN_CKPT_AT),
                 ckpt_dir=str(ckpt_dir), ckpt_every=TRAIN_CKPT_AT)
+    on_mesh = (run0["losses"] + run1["losses"])[:TRAIN_MESHLESS_STEPS]
+    if on_mesh != meshless:
+        raise AssertionError(f"train: losses on the 1x1 mesh {on_mesh} are "
+                             f"not the meshless run's {meshless}")
+    log(f"train (b): the first {TRAIN_MESHLESS_STEPS} losses on the 1x1 "
+        f"mesh ({dist.get_backend()}) equal the meshless run's bit for bit: "
+        f"{on_mesh}")
     save_loop_s = time.perf_counter() - t
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     t = time.perf_counter()
@@ -2148,10 +2454,30 @@ def training_path(dev, smi: str) -> dict:
                              f"saved one: {differ[:6]}")
     dtypes = sorted({str(x.dtype) for x in restored[0].values()}
                     | {str(x.dtype) for x in opt2.mu.values()})
-    # (d) the restored checkpoint's first leaf (the token table) as u32
+    # the restored checkpoint re-placed onto the mesh
+    t = time.perf_counter()
+    placed = elastic_reshard(
+        (OrderedDict((k, p.detach()) for k, p in restored[0].items()),
+         restored[1]),
+        (sh.named(mesh, pspecs), sh.named(mesh, ospecs)))
+    torch.cuda.synchronize()
+    reshard_s = time.perf_counter() - t
+    pairs = list(zip(store._flatten(placed), store._flatten(restored)))
+    differ = [path for (path, d), (_, want) in pairs
+              if not torch.equal(bits(d.to_local()), bits(want))]
+    if differ or len(pairs) != 3 * len(restored[0]) + 1:
+        raise AssertionError(f"train: the re-placed checkpoint differs: "
+                             f"{differ[:6]} ({len(pairs)} leaves)")
+    # (d) the re-placed checkpoint's first leaf (the token table) as u32
     # words, encrypted with the host key through the memcrypt kernel
-    leaf_name, leaf = next(iter(restored[0].items()))
-    words = leaf.detach().reshape(-1).view(torch.int32)
+    leaf_name, leaf_d = next(iter(placed[0].items()))
+    try:
+        mc.memcrypt(leaf_d, **HOST_KEY)
+        raise AssertionError("train: memcrypt launched on a DTensor")
+    except TypeError:
+        pass
+    leaf = leaf_d.to_local()
+    words = leaf.reshape(-1).view(torch.int32)
     enc = ops.memory_encrypt(words, device=dev, **HOST_KEY)
     dec = ops.memory_decrypt(enc, device=dev, **HOST_KEY)
     plain = mc.ref.memcrypt(words, HOST_KEY["key0"], HOST_KEY["key1"], 0)
@@ -2163,13 +2489,19 @@ def training_path(dev, smi: str) -> dict:
     compare("train leaf decrypt", [dec], [words])
     log(f"train (c, d): checkpoint {TRAIN_CKPT_AT} ({len(saved[0])} "
         f"parameters + moments, {dtypes}) restored from LATEST bit for "
-        f"bit in {restore_s:.2f} s; leaf {leaf_name} {tuple(leaf.shape)} "
+        f"bit in {restore_s:.2f} s and re-placed onto the mesh by "
+        f"elastic_reshard ({len(pairs)} DTensors, "
+        f"{leaf_d.placements} for the leaf, each equal to the restored "
+        f"leaf) in {reshard_s:.2f} s; the wrapper refuses the DTensor; leaf "
+        f"{leaf_name} {tuple(leaf.shape)} "
         f"{leaf.dtype} = {words.numel()} u32 words: ciphertext equals the "
         f"plain version, {changed} words changed, decrypts to the leaf")
     first_losses = run0["losses"] + run1["losses"]
     step_s = list(run1["step_s"])
-    del model, saved, run0, run1, opt, enc, dec, plain
+    del model, saved, run0, run1, opt, enc, dec, plain, placed, pairs, \
+        leaf_d
     free_card()
+    opt2 = train.place_state(model2, opt2, mesh, pspecs, ospecs)
     # the run resumes from the restored state: steps 25-49, then 10 more
     run2 = loop(model=model2, opt=opt2,
                 steps=range(TRAIN_CKPT_AT, TRAIN_STEPS))
@@ -2206,9 +2538,10 @@ def training_path(dev, smi: str) -> dict:
         words, HOST_KEY["key0"], HOST_KEY["key1"], 0), 3)
     leaf_bound = bound(8 * words.numel(), KEYSTREAM_OPS * words.numel())
     t = time.perf_counter()
-    prof, opt_next = profile_train_steps(
-        cfg, model2, run3["opt"], data, step_fn, TRAIN_STEPS + TRAIN_MORE,
-        dev)
+    with use_mesh(mesh):
+        prof, opt_next = profile_train_steps(
+            cfg, model2, run3["opt"], data, step_fn,
+            TRAIN_STEPS + TRAIN_MORE, dev)
     profile_s = time.perf_counter() - t
     recompute_ms = prof["remat_recompute_ms"]
     model_flops, hw_flops = _train_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
@@ -2220,6 +2553,8 @@ def training_path(dev, smi: str) -> dict:
         launches=counts, step_ms=step_ms, step_median_ms=med,
         tokens_per_s=tokens * 1e3 / med, peak_memory_gb=peak_gb,
         restore_s=restore_s, save_loop_s=save_loop_s, profile_s=profile_s,
+        mesh=str(mesh), mesh_backend=dist.get_backend(),
+        meshless_losses=meshless, reshard_s=reshard_s,
         checkpoint_dtypes=dtypes, profile=prof,
         busy_of_median=prof["device_ms"] / med,
         remat_recompute_ms=recompute_ms, model_flops=model_flops,
@@ -2321,15 +2656,19 @@ def main() -> int:
     timing = timing_path(dev)
     # main path 5: MoE serving; then the family and shared-experts phases
     # (each resets and reads the counts inside)
-    moe = serve_main_path(dev, MOE_ARCH, "main moe")
+    # main path 5b: the same olmoe parameters on the 1x1 NCCL mesh
+    moe = serve_main_path(dev, MOE_ARCH, "main moe",
+                          then=lambda cfg, params: mesh_path(dev, cfg, params,
+                                                             smi))
+    meshed = moe.pop("then")
     families = family_paths(dev)
     shared = shared_experts_path(dev)
     # main path 6: training (after the card-vs-CPU gradient check, which
     # launches no kernel; the path resets and reads the counts inside)
     grad_check = train_grad_check(dev)
     training = training_path(dev, smi)
-    for path in (serve, chaos, timing, moe, *families.values(), shared,
-                 training):
+    for path in (serve, chaos, timing, moe, meshed, *families.values(),
+                 shared, training):
         for name, n in path["launches"].items():
             counts[name] += n
     for name, path in (("chaos", chaos), ("timing", timing)):
@@ -2346,10 +2685,12 @@ def main() -> int:
     log(f"training phase on {smi}: gradient check wall "
         f"{grad_check['wall_s']:.3f} s, training path wall "
         f"{training['wall_s']:.3f} s")
+    log(f"mesh phase on {smi}: wall {meshed['wall_s']:.3f} s")
 
     line = {"kernels": [], "main_path": main, "serve_path": serve,
             "chaos_path": chaos, "timing_path": timing,
-            "moe_serve_path": moe, "family_paths": families,
+            "moe_serve_path": moe, "mesh_path": meshed,
+            "family_paths": families,
             "shared_experts_path": shared,
             "train_grad_check": grad_check, "training_path": training,
             "card": smi, "peaks": {"bytes_per_s": PEAK_BYTES_PER_S,

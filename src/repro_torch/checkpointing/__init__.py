@@ -1,2 +1,2 @@
 from . import store
-from .store import latest_step, restore, save
+from .store import elastic_reshard, latest_step, restore, save

@@ -22,8 +22,8 @@ pointer have the JAX package's format, so a checkpoint written by either
 package restores in the other.  A bf16 leaf is written as the JAX package
 writes it: its 2-byte words in a ``<V2`` ``.npy`` (numpy has no bf16),
 manifest dtype ``"bfloat16"``; it is restored by viewing those words as
-``torch.bfloat16``.  Re-placing a checkpoint onto other shardings
-(``elastic_reshard``) is not part of this module.
+``torch.bfloat16``.  `elastic_reshard` re-places a restored tree onto the
+shardings of a (possibly other) mesh as DTensors.
 """
 from __future__ import annotations
 
@@ -193,3 +193,19 @@ def restore(ckpt_dir: str, like: Any,
                          meta["dtype"], leaf, meta["path"])
            for (_, leaf), meta in zip(flat, manifest["leaves"])]
     return _unflatten(like, iter(out)), step
+
+
+def elastic_reshard(tree: Any, shardings: Any) -> Any:
+    """Re-place a restored host tree onto (possibly different) shardings —
+    the elastic-scaling path: restore on the new mesh size and continue.
+    ``shardings`` is ``tree``'s structure with a `launch.sharding.
+    NamedSharding` per leaf; each leaf becomes a DTensor on its mesh with
+    its placements (``distribute_tensor``, the counterpart of
+    ``jax.device_put``), from rank 0's copy."""
+    from torch.distributed.tensor import distribute_tensor
+    leaves, specs = _flatten(tree), _flatten(shardings)
+    if len(leaves) != len(specs):
+        raise ValueError(f"{len(leaves)} leaves, {len(specs)} shardings")
+    out = (distribute_tensor(torch.as_tensor(x), s.mesh, s.placements)
+           for (_, x), (_, s) in zip(leaves, specs))
+    return _unflatten(tree, out)

@@ -10,6 +10,8 @@ is no fallback.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 # Kernel launches per kernel since the last reset: each wrapper adds one
@@ -26,9 +28,30 @@ def reset_launches() -> None:
         launches[name] = 0
 
 
+@functools.cache
+def dtensor_type() -> type:
+    """``torch.distributed.tensor.DTensor``, imported at first use (a
+    ``from ... import`` of it costs about half a millisecond a call)."""
+    from torch.distributed.tensor import DTensor
+    return DTensor
+
+
+def reject_dtensors(**tensors) -> None:
+    """Raise on a ``DTensor`` operand.  A wrapper takes plain (local)
+    tensors: a DTensor's data pointer would be its local shard's, so a
+    launch on it would compute on whatever part of the tensor this rank
+    happens to hold."""
+    for name, t in tensors.items():
+        if type(t) is not torch.Tensor and isinstance(t, dtensor_type()):
+            raise TypeError(f"{name} is a DTensor ({t.placements} on "
+                            f"{t.device_mesh}); pass its local tensor "
+                            "(to_local()) where that is the whole tensor")
+
+
 def check_cuda_operands(**tensors: torch.Tensor) -> None:
     """Raise unless every operand is a contiguous int32 CUDA tensor on one
     device — what the kernels' C interface takes."""
+    reject_dtensors(**tensors)
     devices = {t.device for t in tensors.values()}
     if len(devices) != 1:
         raise ValueError(

@@ -40,7 +40,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from . import launches
+from . import launches, reject_dtensors
 from ._build import launch
 
 # the reference's masking constant (flash_attention.py:37): finite, so a
@@ -195,8 +195,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = -1):
     ``> pos - window``.  Returns [B, H, Sq, dh] in ``q.dtype``, laid out
     like ``q``.  One call counts one launch, also where the decode path
     runs its split and combine kernels.  Raises on CUDA operands that
-    autograd records: the kernel is forward-only.
+    autograd records: the kernel is forward-only, and on DTensor operands.
     """
+    reject_dtensors(q=q, k=k, v=v)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):

@@ -25,7 +25,7 @@ from __future__ import annotations
 import torch
 
 from ..core.table import as_int32
-from . import check_cuda_operands, launches, ref
+from . import check_cuda_operands, launches, ref, reject_dtensors
 from ._build import launch
 from .permcheck import ShardView, check_search_layout, make_shard_view
 
@@ -39,6 +39,7 @@ def memcrypt(data, *, key0: int, key1: int, base_word: int = 0):
     shape: the CUDA kernel for a CUDA tensor, the plain version for a CPU
     one.  Word i of the flattened tensor uses keystream position
     ``base_word + i`` (mod 2^32)."""
+    reject_dtensors(data=data)
     d = as_int32(data)
     if d.device.type == "cpu":
         return ref.memcrypt(d, key0, key1, base_word)

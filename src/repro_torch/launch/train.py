@@ -10,10 +10,13 @@ Presets:
   full   — the assigned config (bf16 parameters, remat full)
 
 The port trains on ONE device, the card unless ``--device`` names another
-(``--device cpu`` runs the plain PyTorch versions).  The reference's mesh
-and parameter shardings (``launch/mesh.py``, ``launch/sharding.py``) are
-not ported yet, so there is no multi-device data or model parallelism.
-Fault tolerance: asynchronous checkpoints every ``--ckpt-every`` steps and
+(``--device cpu`` runs the plain PyTorch versions), on the reference's 1x1
+smoke mesh (``launch/mesh.make_smoke_mesh``: a one-rank process group,
+NCCL on the card, gloo on the CPU): the rule engine gives every parameter
+and AdamW moment its partition spec, `place_state` re-places the state
+onto those shardings, and the steps run under the mesh.  A larger mesh
+raises ``NotImplementedError``: the reference shards a whole model only in
+its dry run (ROADMAP item f2).  Fault tolerance: asynchronous checkpoints every ``--ckpt-every`` steps and
 restore-from-LATEST on restart (``--resume``).
 """
 from __future__ import annotations
@@ -26,6 +29,7 @@ from collections import OrderedDict
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..checkpointing import store
 from ..configs import ARCHS, smoke_config
@@ -34,6 +38,9 @@ from ..data.pipeline import DataConfig, SyntheticLM
 from ..kernels import resolve_device
 from ..models import registry
 from ..optim import AdamWState, init_state
+from . import sharding as sh
+from .activations import use_mesh
+from .mesh import make_smoke_mesh, mesh_devices
 from .steps import build_train_step
 
 
@@ -79,6 +86,43 @@ def restore_state(ckpt_dir: str, model, opt: AdamWState,
         for name, p in model.named_parameters():
             p.copy_(params[name])
     return opt, at
+
+
+def mesh_specs(cfg: ArchConfig, mesh, model, opt: AdamWState) -> tuple:
+    """(parameter specs, AdamW state specs) from the rule engine; raises
+    unless every assignment divides its dimension (`validate_specs`)."""
+    pspecs = sh.param_spec_tree(cfg, mesh, model)
+    ospecs = AdamWState(step=sh.P(), mu=pspecs, nu=pspecs)
+    errs = sh.validate_specs(model, pspecs, mesh) + \
+        sh.validate_specs(opt, ospecs, mesh)
+    if errs:
+        raise ValueError(f"{len(errs)} specs do not divide: {errs[:5]}")
+    return pspecs, ospecs
+
+
+def place_state(model, opt: AdamWState, mesh, pspecs,
+                ospecs) -> AdamWState:
+    """Re-place the parameters and the AdamW state onto the mesh through
+    the specs' `sharding.named` shardings (``store.elastic_reshard``).  On
+    the 1x1 mesh each DTensor's local tensor is the whole tensor: the model
+    keeps it as its parameter's data, and the state returned holds them,
+    so the steps and the kernels see plain tensors."""
+    n = mesh_devices(mesh)
+    if n != 1:
+        raise NotImplementedError(
+            f"the launcher trains on the 1x1 smoke mesh; a {n}-device mesh "
+            "shards the whole model, which the reference does only in its "
+            "dry run (launch/dryrun.py, ROADMAP item f2)")
+    params = OrderedDict((k, p.detach())
+                         for k, p in model.named_parameters())
+    params, opt = store.elastic_reshard(
+        (params, opt), (sh.named(mesh, pspecs), sh.named(mesh, ospecs)))
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            p.data = params[name].to_local()
+    local = lambda tree: OrderedDict((k, v.to_local())
+                                     for k, v in tree.items())
+    return AdamWState(opt.step.to_local(), local(opt.mu), local(opt.nu))
 
 
 def make_batch(cfg: ArchConfig, data: SyntheticLM, step: int,
@@ -173,8 +217,11 @@ def main(argv=None) -> None:
 
     dev = resolve_device(args.device)
     cfg = preset_config(args.arch, args.preset)
+    own_group = not dist.is_initialized()
+    mesh = make_smoke_mesh(dev)
     print(f"arch={args.arch} preset={args.preset} "
-          f"params={cfg.n_params()/1e6:.1f}M devices=1 ({dev})", flush=True)
+          f"params={cfg.n_params()/1e6:.1f}M "
+          f"devices={mesh_devices(mesh)} ({dev})", flush=True)
 
     data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=args.seq,
                                   global_batch=args.batch))
@@ -185,15 +232,18 @@ def main(argv=None) -> None:
         opt, start_step = restore_state(args.ckpt_dir, model, opt)
         print(f"resumed from step {start_step}", flush=True)
 
+    pspecs, ospecs = mesh_specs(cfg, mesh, model, opt)
+    opt = place_state(model, opt, mesh, pspecs, ospecs)
     step_fn = build_train_step(cfg, peak_lr=args.lr, warmup=args.warmup,
                                total_steps=max(args.steps, 100))
     t_start = time.time()
-    run = train_loop(cfg, model, opt, data, step_fn,
-                     range(start_step, args.steps), device=dev,
-                     ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
-                     log_every=args.log_every, log_file=args.log_file,
-                     last_step=args.steps - 1,
-                     log=lambda m: print(m, flush=True))
+    with use_mesh(mesh):
+        run = train_loop(cfg, model, opt, data, step_fn,
+                         range(start_step, args.steps), device=dev,
+                         ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
+                         log_every=args.log_every, log_file=args.log_file,
+                         last_step=args.steps - 1,
+                         log=lambda m: print(m, flush=True))
     losses = run["losses"]
     wall = time.time() - t_start
     print(done_line(losses, wall), flush=True)
@@ -204,6 +254,8 @@ def main(argv=None) -> None:
                        "loss_first5": float(np.mean(losses[:5])),
                        "loss_last5": float(np.mean(losses[-5:])),
                        "losses": losses}, f)
+    if own_group:
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -37,6 +37,8 @@ import torch
 from torch import nn
 
 from ..kernels.flash_attention import flash_attention
+from ..launch.activations import BATCH, MODEL, constrain, current_mesh
+from ..launch.mesh import mesh_shape
 from .common import apply_mrope, apply_rope, normal, param, rms_norm
 
 NEG_INF = -0.7 * float(np.finfo(np.float32).max)
@@ -91,9 +93,25 @@ class Attention(nn.Module):
         over cache[<= cache_pos] (with optional window).
         Returns (y, cache)."""
         b, s, _ = x.shape
+        x = constrain(x, BATCH)
         q, k, v = _project_qkv(self, x, positions, theta=theta,
                                rotary_dim=rotary_dim,
                                mrope_sections=mrope_sections)
+        # the reference's canonical layout: batch over the data axes, heads
+        # over "model"; where the heads do not divide the model axis, the
+        # query sequence dim instead (sequence-parallel attention)
+        mesh = current_mesh()
+        msize = mesh_shape(mesh).get("model", 1) if mesh is not None else 1
+        seq_parallel = (cache is None or cache_pos is None) and s > 1 and \
+            q.shape[2] % max(msize, 1) != 0 and s % max(msize, 1) == 0
+        if seq_parallel:
+            q = constrain(q, BATCH, MODEL)
+            k = constrain(k, BATCH, None, MODEL)
+            v = constrain(v, BATCH, None, MODEL)
+        else:
+            q = constrain(q, BATCH, None, MODEL)
+            k = constrain(k, BATCH, None, MODEL)
+            v = constrain(v, BATCH, None, MODEL)
         on_card = x.device.type == "cuda"
         if cache is not None and cache_pos is not None:    # decode: s == 1
             pos = int(cache_pos)
@@ -129,8 +147,12 @@ class Attention(nn.Module):
             else:
                 out = _sdpa(q, k, v, causal_mask(s, s, window=window,
                                                  device=x.device))
+        if seq_parallel:
+            out = constrain(out, BATCH, MODEL)
+        else:
+            out = constrain(out, BATCH, None, MODEL)
         y = out.reshape(b, s, -1) @ self.wo.reshape(-1, self.wo.shape[-1])
-        return y, cache
+        return constrain(y, BATCH), cache
 
 
 def init_attention(d: int, n_heads: int, n_kv: int, head_dim: int, dtype,

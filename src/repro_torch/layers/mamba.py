@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..launch.activations import BATCH, MODEL, constrain
 from .common import normal, param, rms_norm
 
 
@@ -113,11 +114,13 @@ def mamba1(p: Mamba1, x, cache: MambaCache | None = None):
     if cache is None:
         cache = init_mamba1_cache(b, di, p.a_log.shape[1],
                                   p.conv_w.shape[0], x.dtype, x.device)
-    xi = x @ p.w_x_in
-    z = x @ p.w_z_in
+    x = constrain(x, BATCH)
+    xi = constrain(x @ p.w_x_in, BATCH, None, MODEL)
+    z = constrain(x @ p.w_z_in, BATCH, None, MODEL)
     xi, new_conv = _causal_conv(p.conv_w, p.conv_b, xi, cache.conv)
     xi = F.silu(xi)
     dt = F.softplus((xi @ p.w_dt_in) @ p.w_dt + p.b_dt)
+    dt = constrain(dt, BATCH, None, MODEL)
     bmat = xi @ p.w_b                                      # [B,S,N]
     cmat = xi @ p.w_c                                      # [B,S,N]
     a = -torch.exp(p.a_log)                                # [di,N]
@@ -208,8 +211,9 @@ def mamba2(p: Mamba2, x, cache: Mamba2Cache | None = None, *,
     if cache is None:
         cache = init_mamba2_cache(b, di, gn, nh, head_dim, d_state,
                                   p.conv_x_w.shape[0], x.dtype, x.device)
-    z = x @ p.w_z
-    xi = x @ p.w_x
+    x = constrain(x, BATCH)
+    z = constrain(x @ p.w_z, BATCH, None, MODEL)
+    xi = constrain(x @ p.w_x, BATCH, None, MODEL)
     bmat = x @ p.w_b
     cmat = x @ p.w_c
     dt_in = x @ p.w_dt

@@ -701,3 +701,49 @@ def test_train_isolated_tenants_on_the_card(cuda):  # noqa: F811
     example.main(["--device", "cuda"])
     assert launches["memcrypt"] == 2
     assert launches["flash_attention"] == 0
+
+
+@pytest.mark.cuda
+def test_olmoe_decode_on_the_1x1_nccl_mesh_equals_no_mesh(cuda):  # noqa: F811
+    """A 2-layer olmoe-1b-7b at full width: prefill and 3 greedy decode
+    steps under the 1x1 mesh in a one-rank NCCL group are bit-identical to
+    the same steps without a mesh; each MoE layer reduces its output and
+    aux every call, and the flash kernel runs under the mesh."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.launch.activations import use_mesh
+    assert not dist.is_initialized()
+    cfg = replace(ARCHS["olmoe-1b-7b"], n_layers=2, param_dtype="float32")
+    params = registry.init_params(
+        cfg, torch.Generator(cuda).manual_seed(0), cuda)
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        3, cfg.vocab - 1, (4, 64)).astype(np.int32)).to(cuda)
+    mesh = tmesh.make_smoke_mesh(cuda)
+    try:
+        assert "nccl" in dist.get_backend()
+        runs = []
+        for m in (None, mesh):
+            tep.reset_collectives()
+            launches["flash_attention"] = 0
+            with use_mesh(m):
+                lg, cache = registry.prefill(cfg, params, {"tokens": toks},
+                                             cache_dtype=torch.float32,
+                                             cap=68)
+                out = [lg]
+                for i in range(3):
+                    lg, _ = registry.decode_step(
+                        cfg, params, cache,
+                        out[-1][:, -1:].argmax(-1).to(torch.int32), 64 + i)
+                    out.append(lg)
+            torch.cuda.synchronize()
+            runs.append((out, dict(tep.collectives),
+                         launches["flash_attention"]))
+        (base, c0, f0), (got, c1, f1) = runs
+        for a, b in zip(base, got):
+            assert torch.equal(a, b)
+        assert sum(c0.values()) == 0
+        assert c1["all_reduce"] == 2 * cfg.n_layers * 4
+        assert f1 == f0 == cfg.n_layers * 4
+    finally:
+        dist.destroy_process_group()

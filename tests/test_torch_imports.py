@@ -176,3 +176,25 @@ def test_serving_entry_points_need_cuda_unless_asked_for_the_cpu(
             registry.model_module(cfg).init_cache(*args)
         assert registry.init_params(cfg, torch.Generator(), "cpu") \
             is not None
+
+
+def test_mesh_and_sharding_modules_import_with_jax_blocked():
+    """The meshes, the rule engine, the activation constraints and the
+    modules that call them import while any import of JAX or the JAX
+    package raises, and importing them starts no process group."""
+    mods = ["repro_torch.launch.mesh", "repro_torch.launch.sharding",
+            "repro_torch.launch.activations", "repro_torch.layers.moe_ep",
+            "repro_torch.layers.attention", "repro_torch.layers.mamba",
+            "repro_torch.checkpointing.store", "repro_torch.launch.train"]
+    code = ("import importlib, sys\n"
+            f"for name in {FORBIDDEN!r}:\n"
+            "    sys.modules[name] = None\n"
+            f"for m in {mods!r}:\n"
+            "    importlib.import_module(m)\n"
+            "import torch.distributed as dist\n"
+            "assert not dist.is_initialized()\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          env={"PYTHONPATH": str(REPO / "src"),
+                               "PATH": "/usr/bin:/bin"},
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
