@@ -29,6 +29,14 @@ CUDA toolkit.  Phases, each reported on its own line:
      127-tenant ShardedFabric (1 GiB SDM, 8192-entry table, 4096 words per
      row) stepping through the fabric kernel with an evict + quiesce
      mid-run, then a host's checker through its PermCache twice;
+ 4b. the examples — ``examples/torch_quickstart.py`` (the framework
+     checker on the card, no kernel) and ``examples/torch_multihost_graph_
+     sharing.py`` (8 hosts on one GAPBS graph: the secret words through
+     the memcrypt kernel, 4 fabric steps through the fabric-egress kernel
+     with a revocation mid-run) on the card, each record (verdicts, fault
+     codes, ciphertext, CPI rows, denied lanes, words, fabric stats) equal
+     to a ``device="cpu"`` run's; the multihost run launches memcrypt
+     twice and fabric_egress 4 times, and nothing else;
   5. main path 2, serving — qwen3-4b at full width (f32 parameters made on
      the card from a seed) through ``ServeEngine(fused_egress=True)``: the
      serving CLI's sequence (two co-resident tenants, revocation, eviction,
@@ -77,7 +85,8 @@ CUDA toolkit.  Phases, each reported on its own line:
      prefill/decode with 64 encoder frames (the engine has none), every
      attention, cross attention included, through the flash kernel;
  10. the shared-experts flow of ``examples/torch_serve_shared_experts.py``
-     at olmoe's full width with 2 layers;
+     at olmoe's full width and depth (16 layers: three 8 GiB expert
+     regions, each row mapped to its own page past 2 GiB);
  11. main path 6, training — first one train step of qwen1.5-0.5b at full
      width with 2 layers (f32) on the card and on the CPU from the same
      weights and batch (loss, grad-norm, every gradient and every
@@ -681,6 +690,69 @@ def fabric_main_path(dev) -> dict:
                 step_kernel_ms=kernel_ms, step_bound_ms=b_ms,
                 step_bound_by=b_by, device_ops=device_ops[:8],
                 stats=fab.stats()["bus"])
+
+
+# -- the reference's examples on the card ------------------------------------
+
+# The kernels each example's card run launches, and how often: the
+# quickstart checks through the framework checker (no kernel); the
+# multihost example encrypts and decrypts the secret words and takes 4
+# fabric steps.
+EXAMPLE_LAUNCHES = {
+    "torch_quickstart": {},
+    "torch_multihost_graph_sharing": {"memcrypt": 2, "fabric_egress": 4},
+}
+
+
+def load_example(name: str):
+    """``examples/<name>.py`` as a module."""
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    return example
+
+
+def examples_path(dev) -> dict:
+    """Each example on the card, its launch counts zeroed before and read
+    after, then with ``device="cpu"`` (the plain versions): the two
+    records must be equal, key for key."""
+    t0 = time.perf_counter()
+    out = {"launches": dict.fromkeys(launches, 0)}
+    for name, want in EXAMPLE_LAUNCHES.items():
+        example = load_example(name)
+        t = time.perf_counter()
+        reset_launches()
+        card = example.run(device=dev,
+                           log=lambda m: log("examples: " + m.lstrip("\n")))
+        torch.cuda.synchronize()
+        counts = dict(launches)
+        card_s = time.perf_counter() - t
+        t = time.perf_counter()
+        cpu = example.run(device="cpu", log=lambda m: None)
+        cpu_s = time.perf_counter() - t
+        if counts != {k: want.get(k, 0) for k in launches}:
+            raise AssertionError(f"examples: {name} launched {counts}, not "
+                                 f"{want} and nothing else")
+        differ = sorted(set(card) ^ set(cpu)) + \
+            [k for k in cpu if k in card and card[k] != cpu[k]]
+        if differ:
+            raise AssertionError(f"examples: {name} on the card differs from "
+                                 f"its device='cpu' run at {differ}")
+        for k, n in counts.items():
+            out["launches"][k] += n
+        out[name] = dict(launches=counts, card_s=card_s, cpu_s=cpu_s,
+                         compared=sorted(cpu))
+        if "replay" in card:
+            out[name].update(
+                denied=[step["denied"] for step in card["replay"]],
+                cpi=card["cpi"], stats_bus=card["stats"]["bus"])
+        log(f"examples: {name} on the card equals its device='cpu' run "
+            f"({', '.join(sorted(cpu))}); launches {counts}; card "
+            f"{card_s:.3f} s, CPU {cpu_s:.3f} s")
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"examples: phase wall {out['wall_s']:.3f} s")
+    return out
 
 
 # -- the serving slice ------------------------------------------------------
@@ -1737,10 +1809,11 @@ FAMILY_BATCH, FAMILY_PROMPT, FAMILY_GEN, FAMILY_REQUESTS = 4, 256, 16, 4
 FAMILY_LAYERS = {"falcon-mamba-7b": 8}
 SEAMLESS_FRAMES = 64
 SSM_CPU_TOL = 1e-3          # falcon-mamba on the card against a CPU run
-# The shared-experts flow at olmoe's full width with 2 of its 16 layers:
-# the whole model would hold its experts three times over (pool, model and
-# the stacks rebuilt from each tenant's fetches).
-SHARED_EXPERT_LAYERS = 2
+# The shared-experts flow at olmoe's full width and depth: each expert
+# weight's pool region holds 16 x 64 rows of 8 MiB (8 GiB), so rows from
+# the 256th on lie past 2 GiB.  At most ~55 GB on the card: the 24 GiB pool,
+# one tenant's fetched experts (24 GiB) and the rest of the model.
+SHARED_EXPERT_LAYERS = 16
 
 def ssm_cpu_check(cfg, params, toks, gen0, label: str) -> dict:
     """falcon-mamba runs no kernel: the first group's prefill and first
@@ -1887,30 +1960,36 @@ def shared_experts_path(dev) -> dict:
     are all denied after its revocation, B's tokens do not change and B's
     denied rows come back zero."""
     t0 = time.perf_counter()
-    path = ROOT / "examples" / "torch_serve_shared_experts.py"
-    spec = importlib.util.spec_from_file_location("torch_shared_experts",
-                                                  path)
-    example = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(example)
+    example = load_example("torch_serve_shared_experts")
     cfg = replace(ARCHS[MOE_ARCH], param_dtype="float32",
                   n_layers=SHARED_EXPERT_LAYERS)
     reset_launches()
+    torch.cuda.reset_peak_memory_stats()
     res = example.run(cfg, device=dev, seed=SEED,
                       log=lambda m: log(f"shared experts: {m}"))
     torch.cuda.synchronize()
     counts = dict(launches)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     if counts["flash_attention"] != 4 * cfg.n_layers:
         raise AssertionError(f"shared experts: {counts['flash_attention']} "
                              f"flash launches, not {4 * cfg.n_layers}")
     free_card()
     wall = time.perf_counter() - t0
+    # each region's byte size; its last row starts this far into it
+    region_bytes = cfg.n_layers * cfg.n_experts * cfg.d_model * \
+        cfg.expert_d_ff * 4
+    last_row_off = region_bytes - cfg.d_model * cfg.expert_d_ff * 4
+    log(f"shared experts: 3 expert regions of {region_bytes / 2**30:.1f} GiB"
+        f" each, last row at byte {last_row_off} (2 GiB = {2**31}); peak "
+        f"memory {peak_gb:.2f} GB")
     log(f"shared experts: olmoe full width, {cfg.n_layers} layers: A denied "
         f"{res['a_before'][1]} fetches before and {res['a_revoked'][1]} of "
         f"{res['fetches_per_tenant']} after its revocation; B denied "
         f"{res['b_before'][1]} (zero-filled), tokens {res['b_before'][0]} "
         f"before and {res['b_after'][0]} after; launches {counts}; phase "
         f"wall {wall:.3f} s")
-    return dict(launches=counts, wall_s=wall,
+    return dict(launches=counts, wall_s=wall, n_layers=cfg.n_layers,
+                region_bytes=region_bytes, peak_gb=peak_gb,
                 **{k: res[k] for k in ("a_before", "b_before", "a_revoked",
                                        "b_after", "fetches_per_tenant")})
 
@@ -2649,6 +2728,8 @@ def main() -> int:
                  "fabric_egress"):
         if counts[name] == 0:
             raise AssertionError(f"{name} never launched on the main path")
+    # the examples (the phase resets and reads the counts inside)
+    examples = examples_path(dev)
     # main path 2: serving; main paths 3 and 4: the chaos storm and the
     # clocked timing path (each resets and reads the counts inside)
     serve = serve_main_path(dev, SERVE_ARCH, "main serve")
@@ -2667,8 +2748,8 @@ def main() -> int:
     # launches no kernel; the path resets and reads the counts inside)
     grad_check = train_grad_check(dev)
     training = training_path(dev, smi)
-    for path in (serve, chaos, timing, moe, meshed, *families.values(),
-                 shared, training):
+    for path in (examples, serve, chaos, timing, moe, meshed,
+                 *families.values(), shared, training):
         for name, n in path["launches"].items():
             counts[name] += n
     for name, path in (("chaos", chaos), ("timing", timing)):
@@ -2686,8 +2767,16 @@ def main() -> int:
         f"{grad_check['wall_s']:.3f} s, training path wall "
         f"{training['wall_s']:.3f} s")
     log(f"mesh phase on {smi}: wall {meshed['wall_s']:.3f} s")
+    log(f"examples phase on {smi}: wall {examples['wall_s']:.3f} s "
+        f"(quickstart card {examples['torch_quickstart']['card_s']:.3f} s, "
+        f"multihost card "
+        f"{examples['torch_multihost_graph_sharing']['card_s']:.3f} s + CPU "
+        f"{examples['torch_multihost_graph_sharing']['cpu_s']:.3f} s); "
+        f"shared experts at {shared['n_layers']} layers wall "
+        f"{shared['wall_s']:.3f} s")
 
-    line = {"kernels": [], "main_path": main, "serve_path": serve,
+    line = {"kernels": [], "main_path": main, "examples_path": examples,
+            "serve_path": serve,
             "chaos_path": chaos, "timing_path": timing,
             "moe_serve_path": moe, "mesh_path": meshed,
             "family_paths": families,

@@ -37,11 +37,15 @@ class Region:
 
     def pages_for_rows(self, row_idx) -> torch.Tensor:
         """Map row indices -> first page of each row (page-granular check);
-        int32, on the device of ``row_idx`` (numpy: the CPU)."""
+        int32, on the device of ``row_idx`` (numpy: the CPU).
+
+        The byte offset is taken in int64, so a region past 2 GiB of rows
+        maps each row to its own page (the reference's int32 product wraps
+        there); below that the pages are the reference's."""
         bpr = max(self.bytes_per_row, 1)
-        byte_off = torch.as_tensor(row_idx).to(torch.int32) * bpr
-        return self.start_page + torch.div(byte_off, PAGE_BYTES,
-                                           rounding_mode="floor")
+        byte_off = torch.as_tensor(row_idx).to(torch.int64) * bpr
+        return (self.start_page + torch.div(
+            byte_off, PAGE_BYTES, rounding_mode="floor")).to(torch.int32)
 
 
 def _n_pages(tensor: torch.Tensor) -> int:

@@ -55,7 +55,11 @@ def positional_distances(keys: np.ndarray) -> np.ndarray:
 INF = np.iinfo(np.int64).max
 LINE = 64
 PAGE = 4096
-_rd_cache: dict[int, np.ndarray] = {}
+# id(trace.pages) -> (trace.pages, its reuse distances).  The entry holds
+# the array it was computed from, so no later array can take its id while
+# the entry lives (keyed by the Trace's own id, a freed trace's id handed to
+# a new one would return the old trace's distances).
+_rd_cache: dict[int, tuple[np.ndarray, np.ndarray]] = {}
 
 
 @dataclass(frozen=True)
@@ -154,12 +158,12 @@ def binary_search_nodes(n_entries: int, keys: np.ndarray,
 
 
 def _llc_miss_mask(trace: Trace, cfg: SimConfig) -> np.ndarray:
-    key = id(trace)
+    key = id(trace.pages)
     if key not in _rd_cache:
-        _rd_cache[key] = reuse_distances(trace.pages // LINE)
+        _rd_cache[key] = (trace.pages, reuse_distances(trace.pages // LINE))
         if len(_rd_cache) > 64:
             _rd_cache.pop(next(iter(_rd_cache)))
-    return _rd_cache[key] >= cfg.llc_lines
+    return _rd_cache[key][1] >= cfg.llc_lines
 
 
 def _queue_factor(cfg: SimConfig, packets: float, cycles_est: float,

@@ -1,8 +1,11 @@
-"""Model registry: family -> model module, and the serving entry points.
+"""Model registry: family -> model module, the serving entry points and
+the input specs of each (arch x shape) step.
 
 Every family of the reference is here: dense, moe and vlm on
 `repro_torch.models.lm`, ssm on `.ssm`, hybrid on `.hybrid` and encdec on
-`.encdec`, each with its training loss (`loss_fn`).
+`.encdec`, each with its training loss (`loss_fn`).  `input_specs(cfg,
+shape)` gives every input of a step as a tensor on the meta device: shape
+and dtype, no allocation.
 """
 from __future__ import annotations
 
@@ -10,7 +13,7 @@ from types import ModuleType
 
 import torch
 
-from ..configs.base import ArchConfig
+from ..configs.base import SHAPES, ArchConfig, ShapeConfig
 from . import encdec, hybrid, lm, ssm
 
 _FAMILY_MOD: dict[str, ModuleType] = {
@@ -75,3 +78,48 @@ def cache_shapes(cfg: ArchConfig, batch: int, cap: int,
     if cfg.family == "ssm":
         return mod.init_cache(cfg, batch, dtype=dtype, device="meta")
     return mod.init_cache(cfg, batch, cap, dtype, device="meta")
+
+
+# ---------------------------------------------------------------------------
+# input specs per (arch x shape)
+# ---------------------------------------------------------------------------
+
+def sds(shape, dtype) -> torch.Tensor:
+    """A stand-in for one input: its shape and dtype on the meta device."""
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def supports_shape(cfg: ArchConfig, shape: ShapeConfig) -> tuple[bool, str]:
+    """(supported, reason-if-not).  long_500k needs sub-quadratic attention
+    (ssm, hybrid or local-global); pure full attention skips it."""
+    if shape.name == "long_500k" and not cfg.long_context_ok:
+        return False, ("pure full-attention arch: 500k dense-KV decode is the "
+                       "quadratic regime this shape excludes (DESIGN.md §4)")
+    return True, ""
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeConfig | str) -> dict:
+    """Meta tensors for every input of the step the shape runs: the batch
+    of a train or prefill step, or a decode step's cache (per layer, from
+    `cache_shapes`), one new token per row and its position."""
+    if isinstance(shape, str):
+        shape = SHAPES[shape]
+    b, s = shape.global_batch, shape.seq_len
+    tok = torch.int32
+    if shape.kind in ("train", "prefill"):
+        batch = {"tokens": sds((b, s), tok)}
+        if shape.kind == "train":
+            batch["labels"] = sds((b, s), tok)
+        if cfg.family == "vlm":
+            batch["vision_embeds"] = sds((b, cfg.n_patches, cfg.d_model),
+                                         torch.bfloat16)
+            if shape.kind == "train":
+                batch["positions"] = sds((3, b, s), tok)
+        if cfg.family == "encdec":
+            batch["frames"] = sds((b, s // cfg.frames_ratio, cfg.d_model),
+                                  torch.bfloat16)
+        return batch
+    # decode: one new token against a cache of seq_len
+    return {"cache": cache_shapes(cfg, b, s),
+            "tokens": sds((b, 1), tok),
+            "pos": sds((), torch.int32)}

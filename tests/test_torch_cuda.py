@@ -25,7 +25,7 @@ from repro_torch.checkpointing import store
 from repro_torch.configs import ARCHS, smoke_config
 from repro_torch.core import ShardedFabric, pack_ext_addr
 from repro_torch.core.fabric import stack_views
-from repro_torch.kernels import launches, ops
+from repro_torch.kernels import launches, ops, reset_launches
 from repro_torch.kernels import fabric_egress as tfe
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import memcrypt as tmc
@@ -608,6 +608,37 @@ def test_shared_experts_flow_on_the_card(cuda):  # noqa: F811
     assert out["a_revoked"][1] == out["fetches_per_tenant"]
     assert out["b_after"][0] == out["b_before"][0]
     assert launches["flash_attention"] == 4 * cfg.n_layers
+
+
+# Launches of each reference example's port on the card: the quickstart's
+# checks run the framework checker (no kernel); the multihost example
+# encrypts and decrypts the secret words (memcrypt) and takes 4 fabric
+# steps, one fabric-egress launch each.
+EXAMPLE_LAUNCHES = {
+    "torch_quickstart.py": {},
+    "torch_multihost_graph_sharing.py": {"memcrypt": 2, "fabric_egress": 4},
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("script", list(EXAMPLE_LAUNCHES))
+def test_example_on_the_card_equals_the_cpu(cuda, script):  # noqa: F811
+    """The example's record on the card (verdicts, fault codes, ciphertext,
+    CPI rows, each fabric step's denied lanes, codes and words, the fabric
+    stats) equals its ``device="cpu"`` record, and the card run launched
+    exactly its kernels."""
+    path = Path(__file__).resolve().parents[1] / "examples" / script
+    spec = importlib.util.spec_from_file_location(path.stem, path)
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    reset_launches()
+    card = example.run(device=cuda, log=lambda m: None)
+    torch.cuda.synchronize()
+    counts = dict(launches)
+    cpu = example.run(device="cpu", log=lambda m: None)
+    assert card == cpu
+    assert counts == {name: EXAMPLE_LAUNCHES[script].get(name, 0)
+                      for name in launches}
 
 
 # ---------------------------------------------------------------------------

@@ -341,3 +341,26 @@ def test_model_matches(bfs_traces, case):
     _assert_results_equal(jres, tres)
     _assert_results_equal(jbase, tbase)
     assert tres.cpi_norm >= 1.0
+
+
+def test_llc_misses_follow_the_trace_pages_not_the_trace_id(bfs_traces):
+    """The reuse distances are cached per pages array: a Trace that holds a
+    simulated trace's id (here the same object given a new pages array, as
+    a new trace allocated where a freed one lived would) is simulated from
+    its own pages.  The result equals a run of a fresh Trace of those
+    pages."""
+    _, tt = bfs_traces
+    g = tgraphs.make_graph(scale=12, avg_degree=8, seed=3)
+    other = tgapbs.trace_tc(g, cap=120_000, seed=1)
+    kw = dict(n_entries=1, cache_bytes=2048, n_hosts=6, kernel="x")
+    reused = tgapbs.Trace(tt.pages, tt.is_write, tt.n_instructions,
+                          tt.local_refs)
+    first, _ = tmodel.run_pair(reused, **kw)
+    reused.pages, reused.is_write = other.pages, other.is_write
+    reused.n_instructions, reused.local_refs = (other.n_instructions,
+                                                other.local_refs)
+    got, got_base = tmodel.run_pair(reused, **kw)
+    want, want_base = tmodel.run_pair(other, **kw)
+    _assert_results_equal(got, want)
+    _assert_results_equal(got_base, want_base)
+    assert got.plpki != first.plpki

@@ -133,3 +133,49 @@ def test_free_list_and_external_spans():
         seen.append((spans, pool._free, pool.total_pages,
                      float(np.asarray(pool.tensor("e")).sum())))
     assert seen[0] == seen[1]
+
+
+# A region of 100,000 rows of 32 KiB (3.05 GiB): rows from 65,536 on lie
+# past 2 GiB, where the reference's int32 row-to-page product wraps.
+WIDE_ROW = (8192,)
+WIDE_ROWS = 100_000
+
+
+def test_pages_for_rows_past_two_gib_of_rows():
+    """Below the wrap the port's pages are the reference's bit for bit;
+    past it they follow exact arithmetic, int32 on the rows' device."""
+    from repro.core.pool import Region as JRegion
+    from repro_torch.core import Region
+    port = Region("x", 100, 600000, WIDE_ROW, torch.float32, WIDE_ROWS)
+    ref = JRegion("x", 100, 600000, WIDE_ROW, np.float32, WIDE_ROWS)
+    below = np.concatenate([np.arange(0, 65536, 97), [65535]])
+    got = port.pages_for_rows(torch.as_tensor(below))
+    assert got.dtype == torch.int32 and got.device.type == "cpu"
+    assert_equal(got, np.asarray(ref.pages_for_rows(below)))
+    above = port.pages_for_rows(np.asarray([65536, 70000, 99999]))
+    assert above.dtype == torch.int32
+    assert above.tolist() == [524388, 560100, 800092]
+    assert above.tolist() == [100 + r * 32768 // PAGE_BYTES
+                              for r in (65536, 70000, 99999)]
+
+
+def test_checked_gather_judges_a_row_past_two_gib_by_its_own_page():
+    """A grant that covers row 70,000's pages grants that row and no other;
+    a row outside every grant is denied and zero-filled."""
+    pool = SharedTensorPool()
+    # every row the same 32 KiB, held once (a stride-0 view)
+    w = (torch.arange(8192, dtype=torch.float32) + 1).expand(WIDE_ROWS, 8192)
+    region = pool.register("wide", w)
+    page = int(region.pages_for_rows([70000])[0])
+    assert page == region.start_page + 70000 * 8
+    fm = FabricManager(sdm_pages=pool.total_pages + 8, table_capacity=256)
+    pid = fm.enroll_host(0).get_next_pid()
+    assert fm.propose(Proposal(0, pid, 0xA, page, 8, PERM_R)) is not None
+    res = checked_gather(pool, "wide", [69999, 70000, 70001, 1000],
+                         hwpid=pid, table=fm.table.to_device("cpu"),
+                         hwpid_local=make_hwpid_local([pid], device="cpu"))
+    assert res.check.allowed.tolist() == [False, True, False, False]
+    assert res.check.fault.tolist() == [FAULT_NO_ENTRY, 0, FAULT_NO_ENTRY,
+                                        FAULT_NO_ENTRY]
+    assert torch.equal(res.data[1], w[0])
+    assert not res.data[[0, 2, 3]].any()

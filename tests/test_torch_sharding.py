@@ -89,11 +89,6 @@ def test_param_specs_equal_the_reference_without_stacked_dims(arch, kind):
     assert sh.validate_specs(model, specs, mesh) == []
 
 
-def _port_batch(batch: dict) -> dict:
-    return {k: torch.empty(v.shape, device="meta") for k, v in batch.items()
-            if k != "cache"}
-
-
 @pytest.mark.parametrize("kind", list(MESHES))
 @pytest.mark.parametrize("shape_name", list(SHAPES))
 @pytest.mark.parametrize("arch", ARCH_IDS)
@@ -103,19 +98,20 @@ def test_batch_and_cache_specs_equal_the_reference(arch, shape_name, kind):
     reference's stacked ones without the stacked dims; every assignment
     divides."""
     rcfg, cfg = REF_ARCHS[arch], ARCHS[arch]
-    shape = REF_SHAPES[shape_name]
-    ok, _ = ref_registry.supports_shape(rcfg, shape)
+    shape = SHAPES[shape_name]
+    ok, _ = registry.supports_shape(cfg, shape)
+    assert ok == ref_registry.supports_shape(rcfg, REF_SHAPES[shape_name])[0]
     if not ok:
         pytest.skip("shape unsupported for this arch")
     rmesh, mesh = meshes(kind)
-    ref_batch = ref_registry.input_specs(rcfg, shape)
-    batch = _port_batch(ref_batch)
+    ref_batch = ref_registry.input_specs(rcfg, REF_SHAPES[shape_name])
+    specs = registry.input_specs(cfg, shape)
+    batch = {k: v for k, v in specs.items() if k != "cache"}
     if shape.kind == "decode":
         ref_bspecs = ref_sh.batch_spec_tree(rcfg, rmesh,
                                             {"tokens": ref_batch["tokens"]})
         bspecs = sh.batch_spec_tree(cfg, mesh, {"tokens": batch["tokens"]})
-        cache = registry.cache_shapes(cfg, SHAPES[shape_name].global_batch,
-                                      SHAPES[shape_name].seq_len)
+        cache = specs["cache"]
         cspecs = sh.cache_spec_tree(cfg, mesh, cache)
         ref_cspecs = ref_sh.cache_spec_tree(rcfg, rmesh, ref_batch["cache"])
         ref_by_path = {
