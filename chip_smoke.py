@@ -103,6 +103,15 @@ CUDA toolkit.  Phases, each reported on its own line:
      encrypted and decrypted with the host key through the memcrypt
      kernel; then the step's wall, device time by op (the remat recompute
      by a profiler scope), tokens/s, peak memory and FLOP share.
+ 12. the dry run, a host check — ``python -m repro_torch.launch.dryrun
+     --arch qwen1.5-0.5b --shape decode_32k --mesh single`` in a process
+     of its own with the card hidden from it (the dry run traces fake host
+     tensors on a fake 256-rank process group and never touches a
+     device): its record must say OK with the reference's 1,668,721,700
+     argument bytes per rank, and this process' card memory must not
+     move; the record's FLOPs and the phase's wall are logged.  It holds
+     the DTensor, FakeStore and ``local_map`` calls the dry run makes to
+     this machine's torch.
   Each main path's kernel launch counts are zeroed just before it and read
   just after: each of its kernels must have launched.
 
@@ -118,6 +127,7 @@ import functools
 import gc
 import importlib.util
 import json
+import os
 import re
 import shutil
 import subprocess
@@ -2680,6 +2690,58 @@ def _training_on_mesh(dev, smi, cfg, data, step_fn, plain_loop, mesh,
     return rec
 
 
+DRYRUN_CELL = ("qwen1.5-0.5b", "decode_32k")
+DRYRUN_ARG_BYTES = 1_668_721_700     # the reference's, per rank (pod 16x16)
+
+
+def dryrun_path() -> dict:
+    """The dry run of one cell in a subprocess, as a user runs it: a host
+    check (fake tensors on a fake process group; the card is hidden from
+    the subprocess), so this process' card memory must not move."""
+    out_dir = ROOT / "build" / "dryrun_smoke"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    arch, shape = DRYRUN_CELL
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--mesh", "single", "--out", str(out_dir)],
+        cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT / "src"),
+                       "CUDA_VISIBLE_DEVICES": ""},
+        capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0 or "All dry-run cells passed." not in \
+            proc.stdout:
+        raise AssertionError(f"dryrun: rc {proc.returncode}\n"
+                             f"{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
+    after = torch.cuda.memory_allocated()
+    rec = json.loads((out_dir / f"{arch.replace('.', '_')}__{shape}__"
+                      "pod_16x16.json").read_text())
+    args = rec["memory_analysis"]["argument_size_in_bytes"]
+    if rec["status"] != "OK" or args != DRYRUN_ARG_BYTES:
+        raise AssertionError(f"dryrun: status {rec['status']}, argument "
+                             f"bytes {args}, not {DRYRUN_ARG_BYTES}")
+    if after != before:
+        raise AssertionError(f"dryrun: card memory moved {before} -> "
+                             f"{after} bytes")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out = {"arch": arch, "shape": shape, "mesh": rec["mesh"],
+           "status": rec["status"], "argument_bytes": args,
+           "dot_flops": rec["hlo_analysis"]["dot_flops"],
+           "flops_per_device": rec["flops_per_device"],
+           "collective_bytes": rec["collective_bytes_per_device"]["total"],
+           "lower_s": rec["lower_s"], "compile_s": rec["compile_s"],
+           "memory_allocated": after, "wall_s": wall,
+           "torch": torch.__version__}
+    log(f"dryrun (host): {arch} x {shape} x {rec['mesh']} OK on a fake "
+        f"256-rank group: argument bytes {args} per rank, dot FLOPs "
+        f"{out['dot_flops']:.4e}, FLOPs {out['flops_per_device']:.4e}, "
+        f"collective bytes {out['collective_bytes']:.4e} per rank; state "
+        f"{rec['lower_s']} s, traced step {rec['compile_s']} s, phase wall "
+        f"{wall:.3f} s; card memory {after} bytes before and after")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2748,6 +2810,8 @@ def main() -> int:
     # launches no kernel; the path resets and reads the counts inside)
     grad_check = train_grad_check(dev)
     training = training_path(dev, smi)
+    # the dry run: a host check, no kernel
+    dry = dryrun_path()
     for path in (examples, serve, chaos, timing, moe, meshed,
                  *families.values(), shared, training):
         for name, n in path["launches"].items():
@@ -2767,6 +2831,7 @@ def main() -> int:
         f"{grad_check['wall_s']:.3f} s, training path wall "
         f"{training['wall_s']:.3f} s")
     log(f"mesh phase on {smi}: wall {meshed['wall_s']:.3f} s")
+    log(f"dryrun phase (host) beside {smi}: wall {dry['wall_s']:.3f} s")
     log(f"examples phase on {smi}: wall {examples['wall_s']:.3f} s "
         f"(quickstart card {examples['torch_quickstart']['card_s']:.3f} s, "
         f"multihost card "
@@ -2782,7 +2847,7 @@ def main() -> int:
             "family_paths": families,
             "shared_experts_path": shared,
             "train_grad_check": grad_check, "training_path": training,
-            "card": smi, "peaks": {"bytes_per_s": PEAK_BYTES_PER_S,
+            "dryrun_path": dry, "card": smi, "peaks": {"bytes_per_s": PEAK_BYTES_PER_S,
                                    "int32_ops_per_s": ops_per_s,
                                    "f32_flops": PEAK_F32_FLOPS,
                                    "bf16_flops": PEAK_BF16_FLOPS,

@@ -36,13 +36,18 @@ def dtensor_type() -> type:
     return DTensor
 
 
+def is_dtensor(x) -> bool:
+    """Whether ``x`` is a ``DTensor`` (a plain tensor answers at once)."""
+    return type(x) is not torch.Tensor and isinstance(x, dtensor_type())
+
+
 def reject_dtensors(**tensors) -> None:
     """Raise on a ``DTensor`` operand.  A wrapper takes plain (local)
     tensors: a DTensor's data pointer would be its local shard's, so a
     launch on it would compute on whatever part of the tensor this rank
     happens to hold."""
     for name, t in tensors.items():
-        if type(t) is not torch.Tensor and isinstance(t, dtensor_type()):
+        if is_dtensor(t):
             raise TypeError(f"{name} is a DTensor ({t.placements} on "
                             f"{t.device_mesh}); pass its local tensor "
                             "(to_local()) where that is the whole tensor")

@@ -12,6 +12,11 @@ the mesh lacks, is dropped) and
     and returns a plain tensor unchanged: eager PyTorch has no SPMD
     partitioner to constrain.
 
+State that a step makes for itself follows its inputs: `zeros` and
+`sharded_cache` give plain tensors, as before, unless the input they are
+made for is a ``DTensor`` under an ambient mesh (the dry run), and then
+DTensors laid out by the rules, with only the local shard made.
+
 PyTorch has no ``with mesh:``, so `use_mesh` sets the ambient mesh for a
 block (a context variable; the reference reads jax's thread resources).
 The reference's ``constrain`` raises "can only refer to Auto axes" on jax
@@ -24,8 +29,10 @@ import contextlib
 import contextvars
 import math
 
-from ..kernels import dtensor_type
-from .mesh import axis_names, mesh_shape, spec_placements
+import torch
+
+from ..kernels import is_dtensor
+from .mesh import axis_names, mesh_shape, sharded_zeros, spec_placements
 
 BATCH = ("pod", "data")   # all data-parallel axes
 MODEL = "model"
@@ -69,10 +76,55 @@ def constrain(x, *spec):
     trailing dims may be omitted (replicated).  ``x`` itself without an
     ambient mesh, and for a plain tensor."""
     mesh = _MESH.get()
-    if mesh is None or not isinstance(x, dtensor_type()):
+    if mesh is None or not is_dtensor(x):
         return x
-    full = list(spec) + [None] * (x.ndim - len(spec))
-    resolved = [_resolve(mesh, d, w) for d, w in zip(x.shape, full)]
+    resolved = _resolved(mesh, x.shape, spec)
     if all(r is None for r in resolved):
         return x
     return x.redistribute(mesh, spec_placements(mesh, resolved))
+
+
+def _resolved(mesh, shape, spec) -> list:
+    full = list(spec) + [None] * (len(shape) - len(spec))
+    return [_resolve(mesh, d, w) for d, w in zip(shape, full)]
+
+
+def layout(mesh, shape, *spec) -> tuple:
+    """The placements of a tensor of ``shape`` laid out as ``spec`` on
+    ``mesh``, resolved as `constrain` resolves it."""
+    return spec_placements(mesh, _resolved(mesh, shape, spec))
+
+
+def zeros(shape, dtype, like, *spec):
+    """Zeros of ``shape`` on ``like``'s device: a plain tensor, or, when
+    ``like`` is a DTensor under an ambient mesh, a DTensor laid out as
+    ``spec`` (resolved as `constrain` resolves it)."""
+    mesh = _MESH.get()
+    if mesh is None or not is_dtensor(like):
+        return torch.zeros(shape, dtype=dtype, device=like.device)
+    return sharded_zeros(mesh, layout(mesh, shape, *spec), shape, dtype,
+                         like.device)
+
+
+def sharded_cache(cfg, make, like):
+    """``make(device)``, a zeroed serving cache, on ``like``'s device; when
+    ``like`` is a DTensor under an ambient mesh, every leaf a DTensor laid
+    out by the cache rules (`sharding.cache_spec_tree`)."""
+    mesh = _MESH.get()
+    if mesh is None or not is_dtensor(like):
+        return make(like.device)
+    from .sharding import cache_spec_tree, sharded_zeros_tree
+    shapes = make("meta")
+    return sharded_zeros_tree(mesh, cache_spec_tree(cfg, mesh, shapes),
+                              shapes, like.device)
+
+
+def rows_like(t, like, dim: int = 0):
+    """A plain tensor ``t`` as a DTensor whose dim ``dim`` is laid out as
+    ``like``'s batch dim 0, each rank keeping its own rows of ``t`` (no
+    communication): positions made inside a step for a sharded batch."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    placements = [Shard(dim) if isinstance(p, Shard) and p.dim == 0
+                  else Replicate() for p in like.placements]
+    return distribute_tensor(t, like.device_mesh, placements,
+                             src_data_rank=None)

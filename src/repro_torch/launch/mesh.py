@@ -141,3 +141,39 @@ def spec_placements(mesh, spec) -> tuple:
                                  "twice")
             out[i] = Shard(d)
     return tuple(out)
+
+
+def local_shape(mesh, placements, shape) -> tuple[int, ...]:
+    """This rank's shard of a tensor of ``shape`` laid out as
+    ``placements``: each ``Shard(d)`` divides dim d by its mesh dim's size
+    (the rule engine assigns only axes that divide)."""
+    from torch.distributed.tensor import Shard
+    out = list(shape)
+    for i, p in enumerate(placements):
+        if isinstance(p, Shard):
+            n = mesh.size(i)
+            if out[p.dim] % n:
+                raise ValueError(f"dim {p.dim} of {tuple(shape)} does not "
+                                 f"divide over mesh dim {i} ({n})")
+            out[p.dim] //= n
+    return tuple(out)
+
+
+def contiguous_stride(shape) -> tuple[int, ...]:
+    """The strides of a contiguous tensor of ``shape``."""
+    stride = [1] * len(shape)
+    for d in range(len(shape) - 2, -1, -1):
+        stride[d] = stride[d + 1] * shape[d + 1]
+    return tuple(stride)
+
+
+def sharded_zeros(mesh, placements, shape, dtype, device):
+    """A ``DTensor`` of zeros laid out as ``placements``: only this rank's
+    shard is made."""
+    from torch.distributed.tensor import DTensor
+    shape = tuple(int(n) for n in shape)
+    local = torch.zeros(local_shape(mesh, placements, shape), dtype=dtype,
+                        device=device)
+    return DTensor.from_local(local, mesh, placements, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=contiguous_stride(shape))

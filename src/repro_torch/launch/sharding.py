@@ -42,7 +42,7 @@ from torch import nn
 from ..checkpointing.store import _flatten, _unflatten
 from ..configs.base import ArchConfig
 from ..convert import reference_path
-from .mesh import axis_names, mesh_shape, spec_placements
+from .mesh import axis_names, mesh_shape, sharded_zeros, spec_placements
 
 
 class P(tuple):
@@ -273,6 +273,18 @@ def named(mesh, spec_tree: Any) -> Any:
     return _unflatten(spec_tree, iter(
         NamedSharding(mesh, spec_placements(mesh, spec))
         for _, spec in _flatten(spec_tree)))
+
+
+def sharded_zeros_tree(mesh, spec_tree: Any, shape_tree: Any,
+                       device) -> Any:
+    """``shape_tree`` (meta tensors) as DTensors of zeros on ``device``,
+    each laid out as its spec in ``spec_tree``; only local shards are
+    made."""
+    return _unflatten(shape_tree, iter(
+        sharded_zeros(mesh, spec_placements(mesh, spec), leaf.shape,
+                      leaf.dtype, device)
+        for (_, leaf), (_, spec) in zip(_flatten(shape_tree),
+                                        _flatten(spec_tree))))
 
 
 # ---------------------------------------------------------------------------

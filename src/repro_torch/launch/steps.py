@@ -10,11 +10,13 @@ in each parameter's ``.grad``), and the optimizer state is returned anew.
 """
 from __future__ import annotations
 
+import math
 from collections import OrderedDict
 
 import torch
 
 from ..configs.base import ArchConfig
+from ..kernels import is_dtensor
 from ..models import registry
 from ..optim import (AdamWState, apply_updates, clip_by_global_norm,
                      cosine_schedule, init_state)
@@ -22,10 +24,27 @@ from ..optim import (AdamWState, apply_updates, clip_by_global_norm,
 
 def _microbatches(batch: dict, k: int) -> list[dict]:
     """Split a global batch into k equal microbatches along the batch dim
-    (dim 1 for M-RoPE 'positions' [3, B, S], dim 0 otherwise)."""
-    parts = {name: torch.chunk(x, k, dim=1 if name == "positions" else 0)
+    (dim 1 for M-RoPE 'positions' [3, B, S], dim 0 otherwise).  A DTensor
+    batch is split on each rank's own rows, so every microbatch stays
+    sharded over the data axes (the reference's scan over microbatches
+    keeps the batch sharding)."""
+    parts = {name: _chunk(x, k, 1 if name == "positions" else 0)
              for name, x in batch.items()}
     return [{name: p[i] for name, p in parts.items()} for i in range(k)]
+
+
+def _chunk(x, k: int, dim: int):
+    if not is_dtensor(x):
+        return torch.chunk(x, k, dim=dim)
+    from torch.distributed.tensor import DTensor
+
+    from .mesh import contiguous_stride
+    shape = list(x.shape)
+    shape[dim] //= k
+    return [DTensor.from_local(part, x.device_mesh, x.placements,
+                               run_check=False, shape=torch.Size(shape),
+                               stride=contiguous_stride(shape))
+            for part in torch.chunk(x.to_local(), k, dim=dim)]
 
 
 def _grads_of(cfg: ArchConfig, model, params: OrderedDict, batch: dict):
@@ -52,7 +71,10 @@ def build_train_step(cfg: ArchConfig, *, peak_lr: float = 3e-4,
     ``grad_accum`` k > 1 runs k microbatches and sums their gradients in
     f32 (peak activation memory drops ~1/k at identical math: the mean
     token loss over equal microbatches); a batch that k does not divide,
-    or smaller than k, falls back to k = 1 as the reference's does."""
+    or smaller than k, falls back to k = 1 as the reference's does.  A
+    DTensor batch is split on each rank's own rows (`_microbatches`), into
+    gcd(k, local rows) microbatches: where the data axes leave a rank fewer
+    rows than k, each microbatch is one local row."""
     k = grad_accum if grad_accum is not None else cfg.grad_accum
 
     def train_step(model, opt_state: AdamWState, batch: dict):
@@ -60,9 +82,11 @@ def build_train_step(cfg: ArchConfig, *, peak_lr: float = 3e-4,
         params = OrderedDict(model.named_parameters())
         b = batch["tokens"].shape[0]
         kk = k if k > 1 and b % k == 0 and b >= k else 1
+        if is_dtensor(batch["tokens"]):
+            kk = math.gcd(k, batch["tokens"].to_local().shape[0])
         if kk > 1:
-            g_sum = OrderedDict((n, torch.zeros(p.shape, dtype=torch.float32,
-                                                device=p.device))
+            g_sum = OrderedDict((n, torch.zeros_like(
+                p, dtype=torch.float32, memory_format=torch.contiguous_format))
                                 for n, p in params.items())
             per_micro = []
             for mb in _microbatches(batch, kk):

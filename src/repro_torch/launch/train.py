@@ -16,7 +16,7 @@ NCCL on the card, gloo on the CPU): the rule engine gives every parameter
 and AdamW moment its partition spec, `place_state` re-places the state
 onto those shardings, and the steps run under the mesh.  A larger mesh
 raises ``NotImplementedError``: the reference shards a whole model only in
-its dry run (ROADMAP item f2).  Fault tolerance: asynchronous checkpoints every ``--ckpt-every`` steps and
+its dry run, which `launch.dryrun` ports.  Fault tolerance: asynchronous checkpoints every ``--ckpt-every`` steps and
 restore-from-LATEST on restart (``--resume``).
 """
 from __future__ import annotations
@@ -112,7 +112,8 @@ def place_state(model, opt: AdamWState, mesh, pspecs,
         raise NotImplementedError(
             f"the launcher trains on the 1x1 smoke mesh; a {n}-device mesh "
             "shards the whole model, which the reference does only in its "
-            "dry run (launch/dryrun.py, ROADMAP item f2)")
+            "dry run; the port's, launch/dryrun.py (ROADMAP item f2), "
+            "places its own state on a fake process group")
     params = OrderedDict((k, p.detach())
                          for k, p in model.named_parameters())
     params, opt = store.elastic_reshard(

@@ -19,8 +19,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..launch.activations import BATCH, MODEL, constrain
-from .common import normal, param, rms_norm
+from ..kernels import is_dtensor
+from ..launch.activations import BATCH, MODEL, constrain, layout, zeros
+from ..launch.hlo_analysis import active_recorder
+from .common import (column_parallel_matmul, normal, param, rms_norm,
+                     row_parallel_matmul)
 
 
 class MambaCache(NamedTuple):
@@ -36,6 +39,29 @@ class Mamba2Cache(NamedTuple):
     ssm: torch.Tensor     # [B, H, Dh, N] f32
 
 
+def _batch_sharded(x) -> bool:
+    """A DTensor whose rows are split over the data axes: its products
+    take the tensor-parallel forms below.  A batch the data axes cannot
+    split (long_500k's one row) leaves the weights where the rules put
+    them, as GSPMD does, rather than gather them for one row."""
+    return is_dtensor(x) and any(p.is_shard(0) for p in x.placements)
+
+
+def _in_proj(x, w):
+    """``x @ w`` into the inner width (column-parallel for a sharded
+    batch: DTensor left to itself may gather ``w`` in the backward and
+    compute the whole width on every rank)."""
+    return column_parallel_matmul(x, w) if _batch_sharded(x) else x @ w
+
+
+def _out_proj(y, w):
+    """``y @ w`` out of the inner width (row-parallel for a sharded batch,
+    the partial sums laid out as the batch)."""
+    if _batch_sharded(y):
+        return row_parallel_matmul(y, w)
+    return constrain(y @ w, BATCH)
+
+
 def _causal_conv(w, b, x, conv_state):
     """Depthwise causal conv.  x: [B, S, C], w: [W, C], conv_state:
     [B, W-1, C].  Returns (y, new_state: the last W-1 inputs)."""
@@ -47,12 +73,39 @@ def _causal_conv(w, b, x, conv_state):
 
 def _ssm_scan(h, step, *streams):
     """Run ``h, y_t = step(h, *stream_t)`` over the time axis (dim 1) of
-    each stream; returns (h_final, ys stacked on dim 1)."""
+    each stream; returns (h_final, ys stacked on dim 1).
+
+    Under a cost recorder (`launch.hlo_analysis.active_recorder`) the body
+    runs once inside its ``repeat`` of the trip count, as the reference's
+    analyzer multiplies a ``while`` body: h and ys keep their shapes, their
+    values are not the scan's.  The forward counts exactly what the loop
+    would; under autograd the body's backward is multiplied too, but not the
+    loop's accumulation of the T gradients of what the body closes over."""
+    n = streams[0].shape[1]
+    rec = active_recorder()
+    if rec is not None and n > 1:
+        with rec.repeat("ssm_scan", n):
+            h, y = step(h, *(x[:, 0] for x in streams))
+        return h, _StackRepeated.apply(y, n)
     ys = []
     for t in range(streams[0].shape[1]):
         h, y = step(h, *(x[:, t] for x in streams))
         ys.append(y)
     return h, torch.stack(ys, dim=1)
+
+
+class _StackRepeated(torch.autograd.Function):
+    """``torch.stack([y] * n, dim=1)`` whose backward hands the body one
+    step's gradient (the recorder multiplies that step by n), as the loop's
+    stack hands each step its own."""
+
+    @staticmethod
+    def forward(ctx, y, n):
+        return torch.stack([y] * n, dim=1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.select(1, 0), None
 
 
 # ---------------------------------------------------------------------------
@@ -107,37 +160,86 @@ def init_mamba1_cache(batch: int, di: int, d_state: int, conv_w: int,
                         device=device))
 
 
-def mamba1(p: Mamba1, x, cache: MambaCache | None = None):
-    """x: [B, S, D] -> (y, new_cache)."""
-    b, s, d = x.shape
-    di = p.w_out.shape[0]
-    if cache is None:
-        cache = init_mamba1_cache(b, di, p.a_log.shape[1],
-                                  p.conv_w.shape[0], x.dtype, x.device)
-    x = constrain(x, BATCH)
-    xi = constrain(x @ p.w_x_in, BATCH, None, MODEL)
-    z = constrain(x @ p.w_z_in, BATCH, None, MODEL)
-    xi, new_conv = _causal_conv(p.conv_w, p.conv_b, xi, cache.conv)
-    xi = F.silu(xi)
-    dt = F.softplus((xi @ p.w_dt_in) @ p.w_dt + p.b_dt)
-    dt = constrain(dt, BATCH, None, MODEL)
-    bmat = xi @ p.w_b                                      # [B,S,N]
-    cmat = xi @ p.w_c                                      # [B,S,N]
-    a = -torch.exp(p.a_log)                                # [di,N]
-
+def _mamba1_step(a):
+    """The Mamba1 scan body over the decay ``a`` [di, N]."""
     def step(h, dt_t, xi_t, b_t, c_t):
         da_t = torch.exp(dt_t[..., None] * a)              # [B,di,N]
         dbx_t = (dt_t * xi_t)[..., None] * b_t[:, None, :]
         h = da_t * h + dbx_t                               # [B,di,N]
         return h, torch.einsum("bdn,bn->bd", h, c_t)
+    return step
 
+
+def _mamba2_step():
+    """The Mamba2 (SSD) scan body: scalar decay per head."""
+    def step(h, da_t, dtx_t, b_t, c_t):
+        dbx_t = dtx_t[..., None] * b_t[:, :, None, :]      # [B,H,Dh,N]
+        h = da_t[:, :, None, None] * h + dbx_t             # [B,H,Dh,N]
+        return h, torch.einsum("bhdn,bhn->bhd", h, c_t)
+    return step
+
+
+def _scan_per_shard(step_of, consts, h, streams, h_spec, const_specs,
+                    stream_specs):
+    """`_ssm_scan` of ``step_of(*consts)`` over DTensor operands, per shard
+    (``local_map``): the recurrence is independent per batch row and per
+    channel or head, so each rank scans its rows and its "model" slice,
+    every operand laid out as its activation spec (`layout`).  ys come
+    back laid out as the second stream; the constants' gradients are
+    partial sums over the mesh dims that do not shard them."""
+    from torch.distributed.tensor import Partial
+    from torch.distributed.tensor.experimental import local_map
+    mesh = h.device_mesh
+    h_pl = layout(mesh, h.shape, *h_spec)
+    c_pls = [layout(mesh, c.shape, *sp) for c, sp in zip(consts, const_specs)]
+    s_pls = [layout(mesh, t.shape, *sp) for t, sp in zip(streams,
+                                                          stream_specs)]
+    c_grads = [tuple(Partial() if q.is_replicate() else q for q in pl)
+               for pl in c_pls]
+    n = len(consts)
+    return local_map(
+        lambda h, *args: _ssm_scan(h, step_of(*args[:n]), *args[n:]),
+        out_placements=(h_pl, s_pls[1]),
+        in_placements=(h_pl, *c_pls, *s_pls),
+        in_grad_placements=(h_pl, *c_grads, *s_pls), device_mesh=mesh,
+        redistribute_inputs=True)(h, *consts, *streams)
+
+
+def mamba1(p: Mamba1, x, cache: MambaCache | None = None):
+    """x: [B, S, D] -> (y, new_cache)."""
+    b, s, d = x.shape
+    di = p.w_out.shape[0]
+    if cache is None and is_dtensor(x):
+        w1, n = p.conv_w.shape[0] - 1, p.a_log.shape[1]
+        cache = MambaCache(zeros((b, w1, di), x.dtype, x, BATCH, None, MODEL),
+                           zeros((b, di, n), torch.float32, x, BATCH, MODEL))
+    elif cache is None:
+        cache = init_mamba1_cache(b, di, p.a_log.shape[1],
+                                  p.conv_w.shape[0], x.dtype, x.device)
+    x = constrain(x, BATCH)
+    xi = constrain(_in_proj(x, p.w_x_in), BATCH, None, MODEL)
+    z = constrain(_in_proj(x, p.w_z_in), BATCH, None, MODEL)
+    xi, new_conv = _causal_conv(p.conv_w, p.conv_b, xi, cache.conv)
+    xi = F.silu(xi)
+    # the rank's partial [B,S,R] is summed before w_dt (column-parallel);
+    # DTensor left to itself gathers w_dt and computes every channel
+    dt = F.softplus(constrain(xi @ p.w_dt_in, BATCH) @ p.w_dt + p.b_dt)
+    dt = constrain(dt, BATCH, None, MODEL)
+    bmat = xi @ p.w_b                                      # [B,S,N]
+    cmat = xi @ p.w_c                                      # [B,S,N]
+    a = -torch.exp(p.a_log)                                # [di,N]
     f32 = torch.float32
-    h_t, ys = _ssm_scan(cache.ssm, step, dt.to(f32), xi.to(f32),
-                        bmat.to(f32), cmat.to(f32))
+    streams = (dt.to(f32), xi.to(f32), bmat.to(f32), cmat.to(f32))
+    if is_dtensor(x):
+        h_t, ys = _scan_per_shard(
+            _mamba1_step, (a,), cache.ssm, streams, (BATCH, MODEL),
+            ((MODEL,),), ((BATCH, None, MODEL),) * 2 + ((BATCH,),) * 2)
+    else:
+        h_t, ys = _ssm_scan(cache.ssm, _mamba1_step(a), *streams)
     y = ys.to(x.dtype)                                     # [B,S,di]
     y = y + xi * p.d_skip.to(x.dtype)
     y = y * F.silu(z)
-    return y @ p.w_out, MambaCache(new_conv, h_t)
+    return _out_proj(y, p.w_out), MambaCache(new_conv, h_t)
 
 
 # ---------------------------------------------------------------------------
@@ -208,12 +310,20 @@ def mamba2(p: Mamba2, x, cache: Mamba2Cache | None = None, *,
     nh = p.a_log.shape[0]
     gn = p.w_b.shape[1]
     d_state = gn // n_groups
-    if cache is None:
+    if cache is None and is_dtensor(x):
+        w1 = p.conv_x_w.shape[0] - 1
+        cache = Mamba2Cache(
+            zeros((b, w1, di), x.dtype, x, BATCH, None, MODEL),
+            zeros((b, w1, gn), x.dtype, x, BATCH, None, MODEL),
+            zeros((b, w1, gn), x.dtype, x, BATCH, None, MODEL),
+            zeros((b, nh, head_dim, d_state), torch.float32, x, BATCH,
+                  MODEL))
+    elif cache is None:
         cache = init_mamba2_cache(b, di, gn, nh, head_dim, d_state,
                                   p.conv_x_w.shape[0], x.dtype, x.device)
     x = constrain(x, BATCH)
-    z = constrain(x @ p.w_z, BATCH, None, MODEL)
-    xi = constrain(x @ p.w_x, BATCH, None, MODEL)
+    z = constrain(_in_proj(x, p.w_z), BATCH, None, MODEL)
+    xi = constrain(_in_proj(x, p.w_x), BATCH, None, MODEL)
     bmat = x @ p.w_b
     cmat = x @ p.w_c
     dt_in = x @ p.w_dt
@@ -233,14 +343,14 @@ def mamba2(p: Mamba2, x, cache: Mamba2Cache | None = None, *,
     da = torch.exp(dt * -torch.exp(p.a_log))               # [B,S,H]
     dtx = dt[..., None] * xi.to(f32)                       # [B,S,H,Dh]
 
-    def step(h, da_t, dtx_t, b_t, c_t):
-        dbx_t = dtx_t[..., None] * b_t[:, :, None, :]      # [B,H,Dh,N]
-        h = da_t[:, :, None, None] * h + dbx_t             # [B,H,Dh,N]
-        return h, torch.einsum("bhdn,bhn->bhd", h, c_t)
-
-    h_t, y = _ssm_scan(cache.ssm, step, da, dtx, bmat.to(f32),
-                       cmat.to(f32))                       # [B,S,H,Dh]
+    streams = (da, dtx, bmat.to(f32), cmat.to(f32))
+    if is_dtensor(x):
+        h_t, y = _scan_per_shard(_mamba2_step, (), cache.ssm, streams,
+                                 (BATCH, MODEL), (),
+                                 ((BATCH, None, MODEL),) * 4)
+    else:
+        h_t, y = _ssm_scan(cache.ssm, _mamba2_step(), *streams)  # [B,S,H,Dh]
     y = y + xi.to(f32) * p.d_skip[:, None]
     y = y.reshape(b, s, di).to(x.dtype)
     y = rms_norm(p.norm_scale, y * F.silu(z))
-    return y @ p.w_out, Mamba2Cache(new_cx, new_cb, new_cc, h_t)
+    return _out_proj(y, p.w_out), Mamba2Cache(new_cx, new_cb, new_cc, h_t)

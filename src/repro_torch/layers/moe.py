@@ -78,8 +78,10 @@ def route(xt, router, top_k: int):
 def load_balance_loss(probs, gate_idx, n_experts: int):
     """Switch aux loss: ``E * sum(frac_tokens * frac_probs)``."""
     t, k = gate_idx.shape
-    frac_tok = torch.bincount(gate_idx.reshape(-1), minlength=n_experts) \
-        .to(torch.float32) / (t * k)
+    idx = gate_idx.reshape(-1).long()
+    counts = torch.zeros(n_experts, dtype=torch.int64, device=idx.device) \
+        .scatter_add_(0, idx, torch.ones_like(idx))   # bincount, static shape
+    frac_tok = counts.to(torch.float32) / (t * k)
     frac_prob = probs.mean(dim=0).to(torch.float32)
     return n_experts * torch.sum(frac_tok * frac_prob)
 

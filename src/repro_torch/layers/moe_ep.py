@@ -42,6 +42,7 @@ import torch.distributed as dist
 import torch.distributed.nn.functional as dist_fn
 import torch.nn.functional as F
 
+from ..kernels import is_dtensor
 from ..launch.activations import current_mesh
 from ..launch.mesh import axis_names, mesh_shape
 from .moe import MoE, capacity, load_balance_loss, moe_ffn, route
@@ -310,6 +311,10 @@ def moe_ffn_ep(p: MoE, x, *, top_k: int, capacity_factor: float = 1.25,
             n_experts=e)
         return y.reshape(b, s, d), aux
 
+    if is_dtensor(x):
+        return _moe_ffn_ep_dtensor(p, x, mesh, top_k=top_k,
+                                   capacity_factor=capacity_factor,
+                                   expert_axis=expert_axis)
     names, shape = axis_names(mesh), mesh_shape(mesh)
     data_axes = tuple(a for a in ("pod", "data") if a in names)
     has_model = "model" in names
@@ -361,6 +366,64 @@ def moe_ffn_ep(p: MoE, x, *, top_k: int, capacity_factor: float = 1.25,
 
     # layout not expressible on this mesh: einsum fallback
     return moe_ffn(p, x, top_k=top_k, capacity_factor=capacity_factor)
+
+
+def _moe_ffn_ep_dtensor(p: MoE, x, mesh, *, top_k: int,
+                        capacity_factor: float, expert_axis: str):
+    """`moe_ffn_ep` of DTensor operands: the same shard_map bodies under
+    ``local_map``, which hands each rank its data shard of the tokens and
+    its experts (and FFN slice) of the weights, as ``shard_map``'s
+    ``in_specs`` do; the output stays sharded over the data axes.  Layouts
+    the mesh cannot express raise (the einsum fallback needs
+    ``bincount``, which DTensor lacks)."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    b, s, d = x.shape
+    e = p.router.shape[1]
+    names, shape = axis_names(mesh), mesh_shape(mesh)
+    data_axes = tuple(a for a in ("pod", "data") if a in names)
+    dsize = int(np.prod([shape[a] for a in data_axes]))
+    msize = shape.get("model", 1)
+    if (b * s) % dsize:
+        raise ValueError(f"{b * s} tokens do not divide over the data axes "
+                         f"{data_axes} ({dsize})")
+    cap = capacity((b * s) // dsize, capacity_factor, top_k, e)
+
+    def lay(**dims):
+        """Placements: axis name -> tensor dim sharded over it."""
+        return tuple(Shard(dims[a]) if a in dims else Replicate()
+                     for a in names)
+
+    tokens = lay(**{a: 0 for a in data_axes})
+    whole = lay()
+    if expert_axis == "model" and "model" in names and e % msize == 0:
+        model = _mesh_axis(mesh, ("model",))
+        body = lambda xt, router, wg, wu, wd: _moe_block_model_axis(
+            xt, router, wg, wu, wd, top_k=top_k, cap=cap, n_experts=e,
+            model_axis=model)
+        experts = (lay(model=0),) * 3
+    elif expert_axis == "data" and e % dsize == 0:
+        data = _mesh_axis(mesh, data_axes)
+        model = _mesh_axis(mesh, ("model",)) if "model" in names else None
+        split = model is not None and p.w_gate.shape[-1] % msize == 0
+        ex = {a: 0 for a in data_axes}
+        experts = (lay(**ex, model=2), lay(**ex, model=2),
+                   lay(**ex, model=1)) if split else (lay(**ex),) * 3
+
+        def body(xt, router, wg, wu, wd):
+            y, aux = _moe_block_data_axis(
+                xt, router, wg, wu, wd, top_k=top_k, cap=cap, n_experts=e,
+                data_axis=data, model_axis=model if split else None)
+            return y, aux if split else _pmean(aux, model)
+    else:
+        raise ValueError(f"no expert-parallel layout for {e} experts over "
+                         f"{expert_axis!r} on the mesh {shape}")
+    y, aux = local_map(
+        body, out_placements=(tokens, whole),
+        in_placements=(tokens, whole) + experts, device_mesh=mesh,
+        redistribute_inputs=True)(
+        x.reshape(b * s, d), p.router, p.w_gate, p.w_up, p.w_down)
+    return y.reshape(b, s, d), aux
 
 
 def _data_shard(xt, data: MeshAxis | None):

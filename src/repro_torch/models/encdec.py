@@ -24,6 +24,7 @@ from ..layers.attention import (KVCache, cross_attention, init_attention,
 from ..layers.common import (SwiGLU, apply_remat, cross_entropy, embed,
                              final_logits, init_rms_norm, normal, rms_norm,
                              swiglu)
+from ..launch.activations import sharded_cache
 from .lm import default_positions
 
 
@@ -172,9 +173,10 @@ def prefill(cfg: ArchConfig, params: EncDecLM, tokens, *, frames=None,
     cross = [project_cross_kv(block.cross_attn, memory)
              for block in params.dec_blocks]
     cache = EncDecCache(
-        self_kv=[init_kv_cache(b, cfg.n_kv_heads, cap or s, cfg.head_dim,
-                               cache_dtype, tokens.device)
-                 for _ in range(cfg.n_layers)],
+        self_kv=sharded_cache(cfg, lambda dev: [
+            init_kv_cache(b, cfg.n_kv_heads, cap or s, cfg.head_dim,
+                          cache_dtype, dev) for _ in range(cfg.n_layers)],
+            tokens),
         cross_kv=[KVCache(c.k.to(cache_dtype), c.v.to(cache_dtype))
                   for c in cross])
     x = embed(params.tok, tokens).to(cfg.pdtype)

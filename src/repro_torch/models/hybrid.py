@@ -27,6 +27,7 @@ from ..layers.attention import init_attention, init_kv_cache
 from ..layers.common import (SwiGLU, apply_remat, cross_entropy, embed,
                              final_logits, init_rms_norm, normal, rms_norm,
                              swiglu)
+from ..launch.activations import sharded_cache
 from ..layers.mamba import init_mamba2, init_mamba2_cache, mamba2
 from .lm import default_positions
 
@@ -195,7 +196,8 @@ def prefill(cfg: ArchConfig, params: HybridLM, tokens,
     prompt length)."""
     b, s = tokens.shape
     x = embed(params.tok, tokens).to(cfg.pdtype)
-    cache = init_cache(cfg, b, cap or s, cache_dtype, tokens.device)
+    cache = sharded_cache(cfg, lambda dev: init_cache(
+        cfg, b, cap or s, cache_dtype, dev), tokens)
     positions = default_positions(cfg, b, s, tokens.device)
     x, cache = _run(cfg, params, x, positions, cache, None,
                     _attn_window(cfg, s))

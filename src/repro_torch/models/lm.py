@@ -17,13 +17,14 @@ import torch
 from torch import nn
 
 from ..configs.base import ArchConfig
-from ..kernels import resolve_device
+from ..kernels import is_dtensor, resolve_device
 from ..layers.attention import KVCache, init_attention, init_kv_cache
 from ..layers.common import (SwiGLU, apply_remat, cross_entropy, embed,
                              final_logits, init_rms_norm, normal, rms_norm,
                              swiglu)
 from ..layers.moe import MoE, moe_ffn
 from ..layers.moe_ep import moe_ffn_ep
+from ..launch.activations import sharded_cache
 
 
 # ---------------------------------------------------------------------------
@@ -206,9 +207,13 @@ def _embed_inputs(cfg: ArchConfig, params: DecoderLM, tokens, vision_embeds):
         x = x * torch.tensor(np.sqrt(cfg.d_model), dtype=x.dtype)
     if cfg.family == "vlm" and vision_embeds is not None:
         # patches pre-embedded by the (stubbed) vision frontend; spliced in
-        # after the BOS position
+        # after the BOS position (a DTensor by concatenation: DTensor cannot
+        # differentiate the in-place slice write)
+        v = vision_embeds.to(x.dtype)
+        if is_dtensor(x):
+            return torch.cat([x[:, :1], v, x[:, 1 + v.shape[1]:]], dim=1)
         x = x.clone()
-        x[:, 1:1 + vision_embeds.shape[1]] = vision_embeds.to(x.dtype)
+        x[:, 1:1 + vision_embeds.shape[1]] = v
     return x
 
 
@@ -285,7 +290,8 @@ def prefill(cfg: ArchConfig, params: DecoderLM, tokens, *, vision_embeds=None,
     if positions is None:
         positions = default_positions(cfg, b, s, tokens.device)
     x = _embed_inputs(cfg, params, tokens, vision_embeds)
-    cache = init_cache(cfg, b, cap or s, cache_dtype, tokens.device)
+    cache = sharded_cache(cfg, lambda dev: init_cache(
+        cfg, b, cap or s, cache_dtype, dev), tokens)
     x, _ = _run_layers(cfg, params, x, positions, cache, None)
     return final_logits(params, x[:, -1:], tied=cfg.tie_embeddings), cache
 

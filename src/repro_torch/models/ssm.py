@@ -15,6 +15,7 @@ from ..configs.base import ArchConfig
 from ..kernels import resolve_device
 from ..layers.common import (apply_remat, cross_entropy, embed,
                              final_logits, init_rms_norm, normal, rms_norm)
+from ..launch.activations import sharded_cache
 from ..layers.mamba import MambaCache, init_mamba1, init_mamba1_cache, mamba1
 
 
@@ -102,8 +103,8 @@ def prefill(cfg: ArchConfig, params: MambaLM, tokens,
             cache_dtype=torch.bfloat16, **_):
     """(last-token logits [B, 1, V], cache); a ``cap`` is ignored."""
     x = embed(params.tok, tokens).to(cfg.pdtype)
-    cache = init_cache(cfg, tokens.shape[0], dtype=cache_dtype,
-                       device=tokens.device)
+    cache = sharded_cache(cfg, lambda dev: init_cache(
+        cfg, tokens.shape[0], dtype=cache_dtype, device=dev), tokens)
     x, cache = _run_blocks(params, x, cache)
     return final_logits(params, x[:, -1:], tied=cfg.tie_embeddings), cache
 

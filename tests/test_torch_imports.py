@@ -198,3 +198,23 @@ def test_mesh_and_sharding_modules_import_with_jax_blocked():
                                "PATH": "/usr/bin:/bin"},
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_dry_run_modules_import_with_jax_blocked():
+    """The dry run and its cost analyzer import while any import of JAX or
+    the JAX package raises, and importing them starts no process group
+    and sets no ``XLA_FLAGS``."""
+    mods = ["repro_torch.launch.hlo_analysis", "repro_torch.launch.dryrun"]
+    code = ("import importlib, os, sys\n"
+            f"for name in {FORBIDDEN!r}:\n"
+            "    sys.modules[name] = None\n"
+            f"for m in {mods!r}:\n"
+            "    importlib.import_module(m)\n"
+            "import torch.distributed as dist\n"
+            "assert not dist.is_initialized()\n"
+            "assert 'XLA_FLAGS' not in os.environ\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          env={"PYTHONPATH": str(REPO / "src"),
+                               "PATH": "/usr/bin:/bin"},
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
