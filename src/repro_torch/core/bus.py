@@ -49,6 +49,8 @@ from __future__ import annotations
 from collections import deque
 from typing import Callable, TYPE_CHECKING
 
+from .. import tracing
+
 if TYPE_CHECKING:  # pragma: no cover - import cycle guard (fm imports bus)
     from ..memsim.clock import ClockedFabric
     from .faults import FaultPlan
@@ -261,22 +263,24 @@ class BISnpBus:
         runs the clock to idle — `clock.now` afterwards is when the LAST
         host observed the last commit (the fabric-wide propagation
         horizon)."""
-        if self.clock is not None:
-            for h in tuple(self._queues):
-                self._flush_stash(h)
-            before = self.delivered
-            self.clock.clock.run()
+        with tracing.span("bus.quiesce"):
+            if self.clock is not None:
+                for h in tuple(self._queues):
+                    self._flush_stash(h)
+                before = self.delivered
+                self.clock.clock.run()
+                if any(self._queues.values()):
+                    raise RuntimeError("bus handlers must not publish "
+                                       "during delivery — quiesce barrier "
+                                       "violated")
+                self._check_handler_health()
+                return self.delivered - before
+            n = self.drain()
             if any(self._queues.values()):
                 raise RuntimeError("bus handlers must not publish during "
                                    "delivery — quiesce barrier violated")
             self._check_handler_health()
-            return self.delivered - before
-        n = self.drain()
-        if any(self._queues.values()):
-            raise RuntimeError("bus handlers must not publish during "
-                               "delivery — quiesce barrier violated")
-        self._check_handler_health()
-        return n
+            return n
 
     def _check_handler_health(self) -> None:
         """Raise if any host's handler failed too many times in a row."""

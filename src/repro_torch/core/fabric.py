@@ -50,6 +50,7 @@ from typing import NamedTuple, TYPE_CHECKING
 import numpy as np
 import torch
 
+from .. import tracing
 from ..kernels import resolve_device
 from .checker import (PERM_CACHE_BYTES, cached_check_access,
                       desync_check_result, invalidate_perm_cache,
@@ -661,10 +662,18 @@ class ShardedFabric:
         if self._fabric_view is not None and self._fabric_view_key == key:
             self.view_reuses += 1
             return self._fabric_view
-        views = [self.runtimes[h].shard_view(p) for h, p in rows]
-        self._fabric_view = stack_views(
-            views, [p for _, p in rows], [h for h, _ in rows],
-            epoch=self.fm.table.epoch)
+        with tracing.span("fabric.view_rebuild"):
+            # every distinct host to the current epoch first, so that the
+            # views below only build
+            with tracing.span("fabric.shard_extract"):
+                for h in dict.fromkeys(h for h, _ in rows):
+                    self.runtimes[h]._resident_entries()
+            with tracing.span("fabric.shard_views"):
+                views = [self.runtimes[h].shard_view(p) for h, p in rows]
+            with tracing.span("fabric.stack_views"):
+                self._fabric_view = stack_views(
+                    views, [p for _, p in rows], [h for h, _ in rows],
+                    epoch=self.fm.table.epoch)
         self._fabric_view_key = key
         self.view_rebuilds += 1
         return self._fabric_view
@@ -734,8 +743,9 @@ class ShardedFabric:
         }
 
     def stats(self) -> dict:
-        """Deployment-wide counters (bus delivery, shard rebuilds/sizes) —
-        read-only: never forces a shard extraction or view rebuild."""
+        """Deployment-wide counters (bus delivery, shard rebuilds/sizes,
+        `ShardView` builds summed over hosts) — read-only: never forces a
+        shard extraction or view rebuild."""
         bus = self.fm.bus
         rts = self.runtimes.values()
         return {
@@ -758,6 +768,7 @@ class ShardedFabric:
                 "fm_restarts": self.fm.restarts},
             "shard_rebuilds": {h: rt.shard_rebuilds
                                for h, rt in self.runtimes.items()},
+            "view_builds": sum(rt.views.rebuilds for rt in rts),
             "shard_entries": {
                 h: (rt._shard[0].shape[0] if rt._shard is not None else -1)
                 for h, rt in self.runtimes.items()},

@@ -34,6 +34,7 @@ import contextlib
 from dataclasses import dataclass
 from typing import Callable, Iterator
 
+from .. import tracing
 from .bus import BISnpBus
 from .crypto import derive_key, hmac_label
 from .space import SpaceEngine
@@ -171,7 +172,8 @@ class FabricManager:
     def transaction(self) -> Iterator["FabricManager"]:
         """Coalesce several grant/revoke operations into ONE table commit —
         one epoch bump, one BISnp broadcast covering the union dirty range.
-        Nested transactions are flattened into the outermost one."""
+        Nested transactions are flattened into the outermost one, whose
+        whole extent is the epoch's ``fm.commit`` span."""
         self._require_alive()
         if self._txn_depth:
             self._txn_depth += 1
@@ -180,24 +182,26 @@ class FabricManager:
             finally:
                 self._txn_depth -= 1
             return
-        self.table.begin()
-        self._txn_depth = 1
-        try:
-            yield self
-        except BaseException:
-            self.table.abort()
-            self._txn_effects.clear()
-            self._pending_hwpid_ops.clear()
-            raise
-        finally:
-            self._txn_depth -= 1
-        try:
-            self._commit_and_broadcast()
-            for effect in self._txn_effects:
-                effect()
-        finally:
-            # a failing commit must not leak staged effects into the next txn
-            self._txn_effects.clear()
+        with tracing.span("fm.commit"):
+            self.table.begin()
+            self._txn_depth = 1
+            try:
+                yield self
+            except BaseException:
+                self.table.abort()
+                self._txn_effects.clear()
+                self._pending_hwpid_ops.clear()
+                raise
+            finally:
+                self._txn_depth -= 1
+            try:
+                self._commit_and_broadcast()
+                for effect in self._txn_effects:
+                    effect()
+            finally:
+                # a failing commit must not leak staged effects into the
+                # next txn
+                self._txn_effects.clear()
 
     def _commit_and_broadcast(self) -> CommitInfo | None:
         info = self.table.commit()
@@ -225,14 +229,15 @@ class FabricManager:
         single auto-committed + broadcast transaction."""
         if self._txn_depth:
             return fn()
-        self.table.begin()
-        try:
-            ret = fn()
-        except BaseException:
-            self.table.abort()
-            self._pending_hwpid_ops.clear()
-            raise
-        self._commit_and_broadcast()
+        with tracing.span("fm.commit"):
+            self.table.begin()
+            try:
+                ret = fn()
+            except BaseException:
+                self.table.abort()
+                self._pending_hwpid_ops.clear()
+                raise
+            self._commit_and_broadcast()
         return ret
 
     def _stage_effect(self, effect: Callable[[], None]) -> None:
