@@ -14,7 +14,9 @@ The SDM page space is partitioned into `n_shards` contiguous ranges; host
 host's checker never touches entries outside its resident ranges: the shard
 is re-extracted from the committed table at most once per epoch
 (`shard_rebuilds` counts how often churn forced it), and per-tenant
-`ShardView`s for the kernels are memoized the same way.  Entries straddling
+`ShardView`s for the kernels are memoized the same way: carried to the new
+epoch where the extracted arrays did not change, built where they did, and
+restacked into the fabric's stacked view row by row.  Entries straddling
 a shard boundary are kept whole — a superset shard is only extra work,
 never a wrong verdict, because the checker's range test is exact.
 
@@ -228,7 +230,9 @@ class HostRuntime:
 
     def _resident_entries(self):
         """(starts, ends, perm_words) of committed entries overlapping any
-        resident range, re-extracted at most once per table epoch."""
+        resident range, re-extracted at most once per table epoch.  Where
+        the arrays equal those held, the views derived from them are
+        carried to the new epoch instead of being built again."""
         ht = self.fabric.fm.table
         if self._shard is not None and self._shard_epoch == ht.epoch:
             return self._shard
@@ -251,8 +255,16 @@ class HostRuntime:
                 self.permcache, 0, 0, int(self.permcache.epoch),
                 min_shifted_entry=0)
         self._shard_idx = idx
-        self._shard = (starts[idx].copy(), ends[idx].copy(),
-                       ht.perms[:n][idx].copy())
+        shard = (starts[idx].copy(), ends[idx].copy(),
+                 ht.perms[:n][idx].copy())
+        # the arrays' bytes: equal dtypes, and equal lengths only if the
+        # entry counts are, so equal bytes are equal arrays (a third of
+        # np.array_equal's time on ~100-entry shards)
+        if self._shard is not None and all(
+                a.tobytes() == b.tobytes()
+                for a, b in zip(shard, self._shard)):
+            self.views.carry(self._shard_epoch, ht.epoch)
+        self._shard = shard
         self._shard_epoch = ht.epoch
         self._shard_table = None
         self.shard_rebuilds += 1
@@ -362,6 +374,12 @@ class FabricView(NamedTuple):
         return self.starts.shape[0]
 
 
+# the stacked fields and the never-matching fill of each one's padding
+_SMAX = int(np.iinfo(np.int32).max)
+_STACKED = (("starts", _SMAX), ("ends", _SMAX), ("permbits", 0),
+            ("tile_min", int(EMPTY_START)), ("tile_max", int(_NO_END)))
+
+
 def stack_views(views: "list[ShardView]", hwpids, host_ids,
                 *, epoch: int) -> FabricView:
     """Pad per-host ShardViews to a common entry count and stack them into
@@ -370,9 +388,9 @@ def stack_views(views: "list[ShardView]", hwpids, host_ids,
     n_pad = max(v.starts.shape[0] for v in views)
     t_pad = max(v.n_tiles for v in views)
     dev = views[0].starts.device
-    smax = int(np.iinfo(np.int32).max)
 
-    def stack(field: str, n: int, fill: int) -> torch.Tensor:
+    def stack(field: str, fill: int) -> torch.Tensor:
+        n = t_pad if field.startswith("tile") else n_pad
         out = torch.full((len(views), n), fill, dtype=torch.int32,
                          device=dev)
         for i, v in enumerate(views):
@@ -381,15 +399,43 @@ def stack_views(views: "list[ShardView]", hwpids, host_ids,
         return out
 
     return FabricView(
-        starts=stack("starts", n_pad, smax),
-        ends=stack("ends", n_pad, smax),
-        permbits=stack("permbits", n_pad, 0),
-        tile_min=stack("tile_min", t_pad, int(EMPTY_START)),
-        tile_max=stack("tile_max", t_pad, int(_NO_END)),
+        **{field: stack(field, fill) for field, fill in _STACKED},
         hwpids=torch.as_tensor(list(hwpids), dtype=torch.int32, device=dev),
         host_ids=tuple(host_ids),
         epoch=epoch,
     )
+
+
+def patch_views(base: FabricView, base_views: "list[ShardView]",
+                base_hwpids: list[int], views: "list[ShardView]",
+                hwpids: list[int], host_ids, *,
+                epoch: int) -> "tuple[FabricView, int] | None":
+    """`stack_views` of ``views`` made from ``base``, the FabricView stacked
+    from ``base_views`` and ``base_hwpids``: copies of its tensors, in
+    which only the rows whose view tensors are not those stacked there are
+    written again, and its ``hwpids`` unless they changed.  ``base``
+    itself is left as it is.  Returns (the view, rows written), or None
+    where the row count or either padding differs from ``base``'s (then
+    only `stack_views` gives the layout)."""
+    if len(views) != base.n_hosts or \
+            max(v.starts.shape[0] for v in views) != base.starts.shape[1] or \
+            max(v.n_tiles for v in views) != base.tile_min.shape[1]:
+        return None
+    changed = [i for i, (v, b) in enumerate(zip(views, base_views))
+               if any(getattr(v, f) is not getattr(b, f) for f, _ in _STACKED)]
+    fields = {}
+    for field, fill in _STACKED:
+        out = getattr(base, field).clone()
+        for i in changed:
+            a = getattr(views[i], field)
+            out[i, :a.shape[0]] = a
+            out[i, a.shape[0]:] = fill
+        fields[field] = out
+    if list(hwpids) != list(base_hwpids):
+        fields["hwpids"] = torch.as_tensor(list(hwpids), dtype=torch.int32,
+                                           device=base.hwpids.device)
+    return FabricView(**{"hwpids": base.hwpids, **fields},
+                      host_ids=tuple(host_ids), epoch=epoch), len(changed)
 
 
 class ShardedFabric:
@@ -429,8 +475,11 @@ class ShardedFabric:
         self.vacuums = 0
         self._fabric_view: FabricView | None = None
         self._fabric_view_key = None
+        # (ShardViews, hwpids) the stacked view was last made from
+        self._stacked: tuple[list, list[int]] | None = None
         self.view_rebuilds = 0
         self.view_reuses = 0
+        self.rows_restacked = 0
         # timing-trace recorder (memsim.replay.FabricTrace); set by
         # begin_trace(), consumed by end_trace() — None = not recording
         self._trace = None
@@ -656,7 +705,9 @@ class ShardedFabric:
     def fabric_view(self, hwpid_by_host: dict) -> FabricView:
         """Stacked egress operands for a (possibly multi-tenant) assignment,
         memoized per (table epoch, row list) — steady-state steps pay zero
-        derivation, any commit re-resolves once."""
+        derivation, any commit re-resolves once, and then builds only the
+        views of hosts whose shard changed and writes only their rows into
+        a copy of the last stacked view."""
         rows = self.fabric_rows(hwpid_by_host)
         key = (self.fm.table.epoch, tuple(rows))
         if self._fabric_view is not None and self._fabric_view_key == key:
@@ -671,11 +722,21 @@ class ShardedFabric:
             with tracing.span("fabric.shard_views"):
                 views = [self.runtimes[h].shard_view(p) for h, p in rows]
             with tracing.span("fabric.stack_views"):
-                self._fabric_view = stack_views(
-                    views, [p for _, p in rows], [h for h, _ in rows],
-                    epoch=self.fm.table.epoch)
+                hwpids, host_ids = [p for _, p in rows], [h for h, _ in rows]
+                epoch = self.fm.table.epoch
+                patched = None
+                if self._stacked is not None:
+                    patched = patch_views(self._fabric_view, *self._stacked,
+                                          views, hwpids, host_ids,
+                                          epoch=epoch)
+                if patched is None:
+                    patched = (stack_views(views, hwpids, host_ids,
+                                           epoch=epoch), len(views))
+                self._fabric_view, written = patched
+        self._stacked = (views, hwpids)
         self._fabric_view_key = key
         self.view_rebuilds += 1
+        self.rows_restacked += written
         return self._fabric_view
 
     def step_egress(self, data, ext_addrs, hwpid_by_host: dict,
@@ -744,8 +805,9 @@ class ShardedFabric:
 
     def stats(self) -> dict:
         """Deployment-wide counters (bus delivery, shard rebuilds/sizes,
-        `ShardView` builds summed over hosts) — read-only: never forces a
-        shard extraction or view rebuild."""
+        `ShardView` builds and views carried to a new epoch unbuilt, summed
+        over hosts, rows written into stacked views) — read-only: never
+        forces a shard extraction or view rebuild."""
         bus = self.fm.bus
         rts = self.runtimes.values()
         return {
@@ -769,6 +831,8 @@ class ShardedFabric:
             "shard_rebuilds": {h: rt.shard_rebuilds
                                for h, rt in self.runtimes.items()},
             "view_builds": sum(rt.views.rebuilds for rt in rts),
+            "views_kept": sum(rt.views.kept for rt in rts),
+            "rows_restacked": self.rows_restacked,
             "shard_entries": {
                 h: (rt._shard[0].shape[0] if rt._shard is not None else -1)
                 for h, rt in self.runtimes.items()},

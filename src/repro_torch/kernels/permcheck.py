@@ -110,27 +110,47 @@ def table_shard_view(table, hwpid: int, *,
 
 class ShardViewCache:
     """Epoch-keyed host-side memo: one ShardView per key (typically the
-    tenant HWPID), rebuilt when the epoch moves; counters show how much
-    derivation work churn caused."""
+    tenant HWPID), rebuilt when the epoch moves unless `carry` moved it to
+    the new epoch; counters show how much derivation work churn caused.
+    ``rebuilds`` counts views built, ``kept`` the first use of each view
+    carried to a new epoch (a re-resolution without a build), ``reuses``
+    every other hit."""
 
     def __init__(self):
         self._views: dict[Hashable, ShardView] = {}
+        self._carried: set[Hashable] = set()
         self.rebuilds = 0
         self.reuses = 0
+        self.kept = 0
 
     def get(self, key: Hashable, epoch: int,
             build: Callable[[], ShardView]) -> ShardView:
         view = self._views.get(key)
         if view is not None and int(view.epoch) == int(epoch):
-            self.reuses += 1
+            if key in self._carried:
+                self._carried.discard(key)
+                self.kept += 1
+            else:
+                self.reuses += 1
             return view
         view = build()
         self._views[key] = view
+        self._carried.discard(key)
         self.rebuilds += 1
         return view
 
+    def carry(self, from_epoch: int, to_epoch: int) -> None:
+        """Restamp every view derived at ``from_epoch`` to ``to_epoch``, with
+        no device operation: the caller found the arrays they were derived
+        from unchanged at the new epoch."""
+        for key, view in list(self._views.items()):
+            if int(view.epoch) == int(from_epoch):
+                self._views[key] = view._replace(epoch=int(to_epoch))
+                self._carried.add(key)
+
     def drop(self, key: Hashable) -> None:
         self._views.pop(key, None)
+        self._carried.discard(key)
 
 
 def grant_sizes(starts, ends, permbits, need: int):

@@ -123,10 +123,13 @@ class ServeEngine:
         """Aggregate view-memo counters (the fabric's stacked-view memo
         plus each host's per-tenant ShardView cache) and the control-plane
         health counters (`error_count`: bus handler failures ever;
-        `stalls`: fail-closed desync ticks absorbed by the engine)."""
+        `stalls`: fail-closed desync ticks absorbed by the engine).
+        ``rebuilds`` counts re-resolutions after an epoch moved, views
+        built and views carried to the new epoch unchanged alike."""
         return {
             "rebuilds": self.fabric.view_rebuilds
-            + sum(rt.views.rebuilds for rt in self.fabric.runtimes.values()),
+            + sum(rt.views.rebuilds + rt.views.kept
+                  for rt in self.fabric.runtimes.values()),
             "reuses": self.fabric.view_reuses
             + sum(rt.views.reuses for rt in self.fabric.runtimes.values()),
             "error_count": self.fm.bus.error_count,

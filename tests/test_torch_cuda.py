@@ -37,9 +37,13 @@ from repro_torch.models import registry
 from repro_torch.workloads import gapbs as tgapbs
 from repro_torch.workloads import graphs as tgraphs
 from torch_parity import (BROKEN_SHARDS, EDGE_SHARDS,  # noqa: F401
-                          assert_equal, broken_pages, broken_shard,
-                          chaos_matrix, cuda, edge_ext, edge_pages,
-                          edge_shard, mk_ext, mk_table, search_egress,
+                          LIFECYCLE_EVENTS, assert_equal,
+                          assert_fabric_view_layout,
+                          assert_fabric_views_equal, broken_pages,
+                          broken_shard, chaos_matrix, cuda, edge_ext,
+                          edge_pages, edge_shard, fresh_fabric_view,
+                          lifecycle_deployment, lifecycle_event,
+                          lifecycle_ext, mk_ext, mk_table, search_egress,
                           search_verdict, traced_fabric, words)
 
 SDM = 1 << 22
@@ -500,6 +504,41 @@ def test_chaos_matrix_on_the_card(cuda, seed):  # noqa: F811
     reads and every round's counters, verdicts and fault codes as on the
     CPU."""
     assert chaos_matrix(_port(cuda), seed) == chaos_matrix(_port("cpu"), seed)
+
+
+@pytest.mark.cuda
+def test_incremental_fabric_view_on_the_card(cuda):  # noqa: F811
+    """The lifecycle sequence of the CPU parity test with the fabric on the
+    card, one step launched between commits: after each event the carried
+    and patched stacked view equals one derived from scratch on the card
+    bit for bit and the CPU fabric's, every row meets the search layout,
+    and the step's words and faults equal the CPU fabric's."""
+    rng = np.random.default_rng(9)
+    fabs = [ShardedFabric(1 << 14, 4096, 4, device=d) for d in (cuda, "cpu")]
+    states = [lifecycle_deployment(fab, tcore.Proposal) for fab in fabs]
+    picks = rng.integers(0, 1 << 30, len(LIFECYCLE_EVENTS))
+    for kind, pick in zip((None,) + LIFECYCLE_EVENTS, (0, *picks)):
+        if kind is not None:
+            for fab, state in zip(fabs, states):
+                lifecycle_event(fab, state, kind, int(pick))
+        assert states[0] == states[1], kind
+        assign = states[0]["assign"]
+        view = fabs[0].fabric_view(assign)
+        assert view.starts.is_cuda and view.hwpids.is_cuda
+        assert_fabric_views_equal(view, fresh_fabric_view(fabs[0], assign))
+        assert_fabric_views_equal(view, fabs[1].fabric_view(assign))
+        assert_fabric_view_layout(view)
+        ext = lifecycle_ext(rng, fabs[0], states[0], 1024)
+        data = words(rng, ext.shape)
+        out, fault = _launched("fabric_egress", lambda: fabs[0].step_egress(
+            data, ext, assign))
+        want, want_fault = fabs[1].step_egress(data, ext, assign)
+        assert_equal(out, want)
+        assert_equal(fault, want_fault)
+    counted = [{k: fab.stats()[k] for k in
+                ("view_builds", "views_kept", "rows_restacked")}
+               for fab in fabs]
+    assert counted[0] == counted[1] and counted[0]["views_kept"] > 0
 
 
 @pytest.mark.cuda

@@ -16,7 +16,13 @@ from repro.core.fm import Proposal as JProposal
 from repro_torch.core import (FAULT_DESYNC, PERM_R, PERM_RW, BISnpBus,
                               BISnpEvent, FabricManager, FMUnavailable,
                               Proposal, ShardedFabric, pack_ext_addr)
-from torch_parity import assert_equal, assert_u32_equal, words
+from repro_torch.core.fabric import patch_views, stack_views
+from repro_torch.kernels.permcheck import make_shard_view
+from torch_parity import (LIFECYCLE_EVENTS, assert_equal,
+                          assert_fabric_view_layout,
+                          assert_fabric_views_equal, assert_u32_equal,
+                          fresh_fabric_view, lifecycle_deployment,
+                          lifecycle_event, lifecycle_ext, words)
 
 CHECK_FIELDS = ("allowed", "fault", "entry_idx", "probes")
 
@@ -88,11 +94,16 @@ def _both_fabrics(**kwargs):
     return JFabric(**kwargs), ShardedFabric(device="cpu", **kwargs)
 
 
-def _port_stats(tfab, jfab):
-    """The port's `stats()` without its own key, ``view_builds``, which is
-    first held against the JAX fabric's `ShardView` builds."""
+def _port_stats(tfab, jfab, *, built, kept, restacked):
+    """The port's `stats()` without its own keys, which are first held to
+    the counts the test's commits make: ``view_builds`` views built,
+    ``views_kept`` views carried to a new epoch unbuilt (together the JAX
+    fabric's `ShardView` re-resolutions) and ``rows_restacked`` rows
+    written into stacked views."""
     st = tfab.stats()
-    assert st.pop("view_builds") == sum(
+    assert (st.pop("view_builds"), st.pop("views_kept"),
+            st.pop("rows_restacked")) == (built, kept, restacked)
+    assert built + kept == sum(
         rt.views.rebuilds for rt in jfab.runtimes.values())
     return st
 
@@ -216,7 +227,10 @@ def test_sharded_fabric_scenario_matches_jax():
         fab.fm.restart()
         fab.quiesce()
     _check_equal(jfab.runtimes[1], tfab.runtimes[1], ext[2], wr)
-    assert jfab.stats() == _port_stats(tfab, jfab)
+    # 5 rows built and stacked; the evict changes host 0's shard, so its
+    # 2 rows build and are written again, hosts 1-3 carry their 3 views
+    assert jfab.stats() == _port_stats(tfab, jfab, built=7, kept=3,
+                                       restacked=7)
     assert jfab.storage_overhead() == tfab.storage_overhead()
     assert (jfab.view_rebuilds, jfab.view_reuses) == \
         (tfab.view_rebuilds, tfab.view_reuses)
@@ -248,7 +262,8 @@ def test_shared_residency_and_churn_match():
                 fab.evict(0, live.pop(1)[0])
         fab.quiesce()
         got += [live, fab.free_pages(0), fab.vacuums,
-                _port_stats(fab, fabs[0]) if fab is fabs[1] else fab.stats()]
+                _port_stats(fab, fabs[0], built=0, kept=0, restacked=0)
+                if fab is fabs[1] else fab.stats()]
         seen.append(got)
     assert seen[0] == seen[1]
     pid, start = seen[1][4][-1]
@@ -269,3 +284,74 @@ def test_crash_host_bricks_and_rejoin_is_cold():
     fab.rejoin_host(0)
     assert not bool(fab.runtimes[0].check(np.zeros(4, np.int32),
                                           np.zeros(4, bool)).allowed.any())
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_incremental_fabric_view_equals_a_fresh_derivation(seed):
+    """A seeded sequence of lifecycle events (evict and re-admit, revoke,
+    evict of the revoked tenant, admit into a new span, a shared grant and
+    its release, a hole inside a grant, vacuum, host crash and rejoin, FM
+    crash and restart) through both packages: after each, the port's
+    stacked view, carried and patched, equals one derived from scratch bit
+    for bit, every row meets the search layout, and the step's words and
+    faults equal the JAX fabric's."""
+    rng = np.random.default_rng(seed)
+    fabs = _both_fabrics(sdm_pages=1 << 14, table_capacity=4096,
+                         n_shards=4)
+    states = [lifecycle_deployment(fab, proposal)
+              for fab, proposal in zip(fabs, (JProposal, Proposal))]
+    jfab, tfab = fabs
+    picks = rng.integers(0, 1 << 30, len(LIFECYCLE_EVENTS))
+    for kind, pick in zip((None,) + LIFECYCLE_EVENTS, (0, *picks)):
+        if kind is not None:
+            for fab, state in zip(fabs, states):
+                lifecycle_event(fab, state, kind, int(pick))
+        assert states[0] == states[1], kind
+        assign = states[1]["assign"]
+        view = tfab.fabric_view(assign)
+        assert_fabric_views_equal(view, fresh_fabric_view(tfab, assign))
+        assert_fabric_view_layout(view)
+        ext = lifecycle_ext(rng, tfab, states[1], 128)
+        data = words(rng, ext.shape)
+        jout, jfault = jfab.step_egress(data, ext, assign)
+        tout, tfault = tfab.step_egress(data, ext, assign)
+        assert_u32_equal(jout, tout)
+        assert_equal(jfault, tfault)
+    st = tfab.stats()
+    assert st["view_builds"] < st["view_builds"] + st["views_kept"] == sum(
+        rt.views.rebuilds for rt in jfab.runtimes.values())
+
+
+def _view(rng, n, hwpid):
+    """A ShardView of ``n`` sorted entries, the permbits of ``hwpid``."""
+    bounds = np.sort(rng.choice(1 << 16, 2 * n, replace=False))
+    return make_shard_view(bounds[0::2], bounds[1::2],
+                           rng.integers(0, 4, n).astype(np.uint32),
+                           epoch=hwpid, device="cpu")
+
+
+def test_patch_views_writes_changed_rows_and_refuses_other_padding():
+    """A patch equals `stack_views` of the new views where a row's view
+    shrinks from two tiles to one under the same padding, where rows
+    trade places, and where only the HWPIDs move; the base stays as it
+    was; a new row count or padding is refused."""
+    rng = np.random.default_rng(4)
+    a, b, c = _view(rng, 1100, 1), _view(rng, 30, 2), _view(rng, 5, 3)
+    big = _view(rng, 1500, 4)
+    base = stack_views([a, b, c], [1, 2, 3], [0, 1, 2], epoch=7)
+    kept = base._replace(**{f: getattr(base, f).clone()
+                            for f in base._fields[:6]})
+    cases = [([c, b, big], [3, 2, 4], (2, 1, 2), 2),   # a shrinks, c moves
+             ([b, a, c], [2, 1, 3], (1, 0, 2), 2),     # two rows trade
+             ([a, b, c], [5, 2, 3], (0, 1, 2), 0)]     # the HWPIDs alone
+    for views, hwpids, hosts, n_written in cases:
+        got, written = patch_views(base, [a, b, c], [1, 2, 3], views,
+                                   hwpids, hosts, epoch=8)
+        assert written == n_written
+        assert_fabric_views_equal(got, stack_views(views, hwpids, hosts,
+                                                   epoch=8))
+    assert_fabric_views_equal(base, kept)
+    assert patch_views(base, [a, b, c], [1, 2, 3], [a, b], [1, 2], (0, 1),
+                       epoch=8) is None
+    assert patch_views(base, [a, b, c], [1, 2, 3], [b, b, c], [2, 2, 3],
+                       (0, 1, 2), epoch=8) is None

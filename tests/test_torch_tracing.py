@@ -3,7 +3,7 @@ records inside the fabric's view re-derivation and the FM's commit fan-out:
 off by default and free of records, nesting and parents when on, one span
 of each kind per re-derivation, epoch and quiesce, none on a memo hit, the
 stacked view bit-identical with the recorder on or off, and the fabric's
-`view_builds` counter."""
+`view_builds`, `views_kept` and `rows_restacked` counters."""
 import numpy as np
 import pytest
 import torch
@@ -208,4 +208,72 @@ def test_stats_view_builds_counts_the_builds():
     assign = churn(fab, assign)
     assert fab.stats()["view_builds"] == n_rows     # stats() builds nothing
     fab.step_egress(data, ext, assign)
-    assert fab.stats()["view_builds"] == 2 * n_rows
+    # host 1's replacement (its view was dropped with the evicted tenant)
+    # and host 2's revoked shard build; the other rows' views are carried
+    assert fab.stats()["view_builds"] == n_rows + 2
+
+
+def counters(fab):
+    st = fab.stats()
+    return st["view_builds"], st["views_kept"], st["rows_restacked"]
+
+
+def test_churn_builds_the_changed_rows_and_keeps_the_rest():
+    fab, assign, data, ext = deployment()
+    n_rows = len(fab.fabric_rows(assign))
+    fab.step_egress(data, ext, assign)
+    assert counters(fab) == (n_rows, 0, n_rows)   # one full stack
+    assign = churn(fab, assign)
+    fab.step_egress(data, ext, assign)
+    assert counters(fab) == (n_rows + 2, n_rows - 2, n_rows + 2)
+    # host 2's tenant is revoked already: only host 1's replacement builds
+    assign = churn(fab, assign)
+    fab.step_egress(data, ext, assign)
+    assert counters(fab) == (n_rows + 3, 2 * n_rows - 3, n_rows + 3)
+
+
+def test_a_memo_hit_and_stats_change_no_counter():
+    fab, assign, data, ext = deployment()
+    fab.step_egress(data, ext, assign)
+    before = counters(fab)
+    fab.step_egress(data, ext, assign)              # memo hit
+    fab.fabric_view(assign)
+    assert counters(fab) == before
+    assign = churn(fab, assign)
+    fab.stats()
+    assert counters(fab) == before                  # stats() builds nothing
+    assert all(rt._shard_epoch < fab.fm.table.epoch
+               for rt in fab.runtimes.values())
+
+
+def test_a_commit_that_changes_no_row_builds_and_writes_nothing():
+    """Rows on hosts 0-2 only; a tenant admitted on host 3 changes no
+    row's shard: every view is carried, no row is written, and the new
+    stacked view shares the last one's ``hwpids``."""
+    fab, assign, data, ext = deployment()
+    del assign[3]
+    first = fab.fabric_view(assign)
+    before = counters(fab)
+    fab.admit(3, SPAN)
+    fab.quiesce()
+    after = fab.fabric_view(assign)
+    n_rows = len(fab.fabric_rows(assign))
+    assert counters(fab) == (before[0], before[1] + n_rows, before[2])
+    assert after.epoch == fab.fm.table.epoch > first.epoch
+    assert after.hwpids is first.hwpids
+    for f in ("starts", "ends", "permbits", "tile_min", "tile_max"):
+        assert torch.equal(getattr(after, f), getattr(first, f))
+        assert getattr(after, f) is not getattr(first, f)
+
+
+def test_a_patched_rebuild_records_the_four_spans():
+    fab, assign, data, ext = deployment()
+    fab.step_egress(data, ext, assign)
+    assign = churn(fab, assign)
+    restacked = counters(fab)[2]
+    tracing.enable()
+    fab.step_egress(data, ext, assign)
+    spans = tracing.take()
+    assert names(spans) == list(REBUILD)
+    assert [s.parent for s in spans] == [-1, 0, 0, 0]
+    assert counters(fab)[2] == restacked + 2        # patched, not restacked

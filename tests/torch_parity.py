@@ -374,3 +374,145 @@ def traced_fabric(P, *, n_hosts=8, n_procs=8, scale=10, steps=4, batch=128,
             "penalty": P.replay.timing_penalty(trace, cfg),
             "live": fab.fm.bus.propagation_cycles(), "cycles": cf.now,
             "steps": outs}
+
+
+# ---------------------------------------------------------------------------
+# A seeded sequence of lifecycle events on a fabric (the port's or the JAX
+# package's: both take the same calls), for the incremental view tests.
+# ---------------------------------------------------------------------------
+
+LIFECYCLE_EVENTS = ("readmit", "revoke", "evict_revoked", "admit_new",
+                    "grant_shared", "release_shared", "release_range",
+                    "vacuum", "crash_rejoin", "fm_restart")
+LIFECYCLE_SPAN = 16
+
+
+def lifecycle_deployment(fab, proposal):
+    """Four hosts: two tenants on host 0, one on hosts 1 and 2, and on
+    host 3 one tenant whose 1,101 one-page grants fill two 1024-entry
+    tiles; quiesced.  ``proposal`` is the fabric's `Proposal` class.
+    Returns the state the events keep: ``assign`` {host: [hwpids]} (the
+    rows), ``spans`` {hwpid: (start, n)}, the revoked and the shared
+    tenant."""
+    for h in range(4):
+        fab.enroll(h)
+    state = {"assign": {}, "spans": {}, "revoked": [], "shared": None}
+    for h in (0, 0, 1, 2, 3):
+        pid, start = fab.admit(h, LIFECYCLE_SPAN)
+        state["assign"].setdefault(h, []).append(pid)
+        state["spans"][pid] = (start, LIFECYCLE_SPAN)
+    start = state["spans"][pid][0] + LIFECYCLE_SPAN
+    with fab.fm.transaction():
+        for k in range(1100):
+            fab.fm.propose(proposal(3, pid, 0, start + 2 * k, 1, 1))
+    fab.quiesce()
+    return state
+
+
+def _replace_tenant(fab, state, h, pid):
+    """Evict ``pid`` from host ``h`` and admit its replacement in its
+    place among the rows."""
+    fab.evict(h, pid)
+    new, start = fab.admit(h, LIFECYCLE_SPAN)
+    pids = state["assign"][h]
+    pids[pids.index(pid)] = new
+    state["spans"][new] = (start, LIFECYCLE_SPAN)
+
+
+def lifecycle_event(fab, state, kind, pick):
+    """Apply one event of ``LIFECYCLE_EVENTS``, its tenant or host chosen
+    by the integer ``pick``, and quiesce."""
+    live = [(h, p) for h, ps in sorted(state["assign"].items()) for p in ps
+            if p not in state["revoked"] and p != state["shared"]
+            and h != 3]
+    h, pid = live[pick % len(live)]
+    if kind == "readmit":             # the same span, the tombstone reused
+        _replace_tenant(fab, state, h, pid)
+    elif kind == "revoke":
+        fab.fm.revoke_hwpid(pid)
+        state["revoked"].append(pid)
+    elif kind == "evict_revoked":
+        gone = state["revoked"].pop(0)
+        host = next(g for g, ps in state["assign"].items() if gone in ps)
+        _replace_tenant(fab, state, host, gone)
+    elif kind == "admit_new":         # a new span, one row more
+        new, start = fab.admit(h, LIFECYCLE_SPAN)
+        state["assign"][h].append(new)
+        state["spans"][new] = (start, LIFECYCLE_SPAN)
+    elif kind == "grant_shared":      # a read-only region of host 2's shard
+        lo, hi = fab.shard_range(2)
+        fab.grant_shared(hi - 64, 32, pid, h, perm=1)
+        state["shared"] = pid
+    elif kind == "release_shared":
+        gone, state["shared"] = state["shared"], None
+        host = next(g for g, ps in state["assign"].items() if gone in ps)
+        _replace_tenant(fab, state, host, gone)
+    elif kind == "release_range":     # a hole inside a grant
+        start, n = state["spans"][pid]
+        fab.fm.release_range(pid, start + 4, 4)
+    elif kind == "vacuum":
+        fab.fm.vacuum()
+    elif kind == "crash_rejoin":
+        fab.crash_host(h)
+        fab.rejoin_host(h)
+    elif kind == "fm_restart":        # a snapshot resync reaches every host
+        fab.fm.crash()
+        fab.fm.restart()
+    else:
+        raise ValueError(kind)
+    fab.quiesce()
+
+
+def lifecycle_ext(rng, fab, state, batch):
+    """Tagged addresses of one step over the rows: each row's tenant on
+    its span and a few pages around it, every 19th lane untagged."""
+    rows = fab.fabric_rows(state["assign"])
+    ext = np.zeros((len(rows), batch), np.int32)
+    for i, (_, pid) in enumerate(rows):
+        start, n = state["spans"][pid]
+        tags = np.full(batch, pid, np.int32)
+        tags[::19] = 0
+        pages = start + rng.integers(-4, n + 4, batch)
+        ext[i] = (tags << 24) | (pages & 0xFFFFFF)
+    return ext
+
+
+def fresh_fabric_view(fab, assign):
+    """The port's stacked view derived from scratch: a `make_shard_view`
+    of each row's resident arrays at the current epoch, stacked by
+    `stack_views`."""
+    from repro_torch.core.fabric import stack_views
+    rows = fab.fabric_rows(assign)
+    epoch = fab.fm.table.epoch
+    views = []
+    for h, pid in rows:
+        s, e, pw = fab.runtimes[h]._resident_entries()
+        permbits = (pw[:, pid // 16] >> np.uint32((pid % 16) * 2)) \
+            & np.uint32(3)
+        views.append(tpc.make_shard_view(s, e, permbits, epoch=epoch,
+                                         device=fab.device))
+    return stack_views(views, [p for _, p in rows], [h for h, _ in rows],
+                       epoch=epoch)
+
+
+def assert_fabric_views_equal(got, want):
+    """Every field of two FabricViews equal, the tensors bit for bit."""
+    for f in got._fields:
+        a, b = getattr(got, f), getattr(want, f)
+        if isinstance(a, torch.Tensor):
+            assert a.dtype == b.dtype and a.shape == b.shape, f
+            assert torch.equal(a.cpu(), b.cpu()), f
+        else:
+            assert a == b, f
+
+
+def assert_fabric_view_layout(view):
+    """Every row of a stacked view meets the search kernels' layout and
+    precondition, and holds no permission bit in its padding."""
+    for i in range(view.n_hosts):
+        tpc.check_search_layout(view.starts[i], view.ends[i],
+                                view.permbits[i], view.tile_min[i])
+        assert_search_precondition(view.starts[i], view.ends[i],
+                                   view.tile_min[i])
+        pad = as_np(view.starts[i]) == INT32_MAX
+        assert (as_np(view.permbits[i])[pad] == 0).all()
