@@ -8,7 +8,7 @@ Run from the root of a checkout on a machine with one CUDA card and the
 CUDA toolkit.  Phases, each reported on its own line:
 
   1. device — the card as torch and ``nvidia-smi`` name it, power limit;
-  2. build — the five kernels compiled from ``src/repro_torch/kernels/
+  2. build — the six kernels compiled from ``src/repro_torch/kernels/
      csrc`` (nvcc, sm_90a), with ptxas' register and spill lines; the
      three search kernels (permcheck, checked_memcrypt, fabric_egress)
      must not spill;
@@ -23,7 +23,14 @@ CUDA toolkit.  Phases, each reported on its own line:
      than twice the L2 (as each layer of a decode step finds its own
      cache), with the L2-warm time beside; each regime must run exactly
      its own kernels (``FLASH_PATHS``), and the f32 prefill kernel must
-     not spill;
+     not spill; the grouped expert FFN (``moe_grouped_ffn``) at
+     granite-4.0-h-small's widths (72 experts x 4096 x 768, top-10) at a
+     tenant decode's 16 tokens and a prefill chunk's 8,192, held against
+     its per-expert loop within 1e-4 of the outputs' scale and timed
+     beside its bound; then granite at full width with one Mamba2 and one
+     attention layer: a prefill, then decode steps (eager, captured into
+     CUDA graphs, replayed) whose grouped-kernel and flash launches are
+     counted from zero;
   4. main path 1, the checked egress path — the quickstart flow on one
      host through the port's FabricManager and ops, then a 255-host /
      127-tenant ShardedFabric (1 GiB SDM, 8192-entry table, 4096 words per
@@ -145,6 +152,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.configs import ARCHS  # noqa: E402
+from repro_torch.configs import PORT_ARCHS  # noqa: E402
 from repro_torch.convert import u32_from_numpy  # noqa: E402
 from repro_torch.core import (FAULT_NO_ENTRY, FAULT_PERM,  # noqa: E402
                               PERM_RW, RING_USER, FabricManager, FaultPlan,
@@ -157,6 +165,7 @@ from repro_torch.kernels import (_build, bucket_pad, launches,  # noqa: E402
 from repro_torch.kernels import fabric_egress as fe  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import memcrypt as mc  # noqa: E402
+from repro_torch.kernels import moe_grouped_ffn as mgf  # noqa: E402
 from repro_torch.kernels import permcheck as pc  # noqa: E402
 from repro_torch.checkpointing import elastic_reshard, store  # noqa: E402
 from repro_torch.launch import activations, train  # noqa: E402
@@ -167,8 +176,9 @@ from repro_torch.launch.serve import ServeEngine, run_demo  # noqa: E402
 from repro_torch.launch.steps import build_train_step  # noqa: E402
 from repro_torch.layers import attention as attn_mod  # noqa: E402
 from repro_torch.layers import mamba as mamba_mod  # noqa: E402
-from repro_torch.layers import moe_ep  # noqa: E402
+from repro_torch.layers import moe_dropless, moe_ep  # noqa: E402
 from repro_torch.layers.attention import Attention  # noqa: E402
+from repro_torch.layers.moe import init_moe, route  # noqa: E402
 from repro_torch.memsim.clock import ClockedFabric, TimingConfig  # noqa: E402
 from repro_torch.memsim.replay import replay, timing_penalty  # noqa: E402
 from repro_torch.models import registry  # noqa: E402
@@ -207,6 +217,9 @@ SOURCES = {
                       "src/repro/kernels/fabric_egress.py:170"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:96"),
+    "moe_grouped_ffn": ("src/repro_torch/kernels/csrc/moe_grouped_ffn.cu",
+                        "none (the reference's capacity dispatch leaves "
+                        "its expert products to XLA)"),
 }
 
 
@@ -1038,6 +1051,108 @@ def flash_phase(dev, results: dict) -> None:
         **{k: head[k] for k in ("call_ms", "kernel_only_ms", "plain_ms",
                                 "library_ms", "bound_ms", "bound_by")},
         phases=phases)
+
+
+# granite-4.0-h-small's dropless MoE (72 experts x 4096 x 768, top-10)
+GRANITE_ARCH = "granite-4.0-h-small"
+# the grouped kernel against its per-expert loop: f32 sums of 4,096 and
+# 768 terms in other orders agree to ~1e-5 on outputs of order 1; a wrong
+# slot, expert or weight row is off by order 1
+GROUPED_FFN_TOL = 1e-4
+GROUPED_FFN_TOKENS = (16, 8192)   # a tenant decode's batch; a prefill chunk
+GRANITE_DECODE = dict(layer_types=("mamba", "attention"), batch=16,
+                      prompt=128, steps=4)
+
+
+def grouped_ffn_phase(dev, results: dict) -> dict:
+    """The grouped expert FFN at granite's widths against its per-expert
+    loop at a decode's and a prefill chunk's token counts, timed beside
+    its bound (the weights of the experts hit and each slot's row in and
+    out, or 2 x 3 x D x F f32 operations a slot); then granite at full
+    width with one Mamba2 and one attention layer: a prefill, and decode
+    steps (eager, then captured, then replayed) with the launch counts
+    zeroed just before them.  Returns the decode run's launches."""
+    cfg = PORT_ARCHS[GRANITE_ARCH]
+    e, d, f, k = cfg.n_experts, cfg.d_model, cfg.expert_d_ff, cfg.top_k
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    p = init_moe(d, f, e, torch.float32, g, dev)
+    phases = []
+    for t in GROUPED_FFN_TOKENS:
+        x = torch.randn((t, d), generator=g, device=dev)
+        _, _, idx = route(x, p.router, k)
+        _, tok, offsets, counts = moe_dropless.sort_slots(idx, e)
+        args = (x, tok, offsets, p.w_gate, p.w_up, p.w_down)
+        want = mgf.moe_grouped_ffn_plain(*args)
+        err = float((mgf.moe_grouped_ffn(*args) - want).abs().max())
+        scale = float(want.abs().max())
+        if not (scale > 0.5 and err <= GROUPED_FFN_TOL * scale):
+            raise AssertionError(f"moe_grouped_ffn at {t} tokens: max abs "
+                                 f"err {err:.3e} over |y| {scale:.3f}")
+        hit = int((counts > 0).sum())
+        t_bytes = (hit * 3 * d * f + 2 * t * k * d) * 4 / PEAK_BYTES_PER_S
+        t_ops = 6 * d * f * t * k / PEAK_F32_FLOPS
+        b_ms, b_by = (t_bytes * 1e3, "bytes") if t_bytes >= t_ops else \
+            (t_ops * 1e3, "operations")
+        call = (lambda: mgf.moe_grouped_ffn(*args))
+        phases.append(dict(
+            tokens=t, slots=t * k, experts_hit=hit, max_abs_err=err,
+            call_ms=cuda_ms(call, 20 if t <= 16 else 3),
+            kernel_only_ms=kernel_only_ms(call, "moe_grouped_ffn_", 3),
+            plain_ms=cuda_ms(lambda: mgf.moe_grouped_ffn_plain(*args), 3),
+            bound_ms=b_ms, bound_by=b_by))
+        log(f"phase moe_grouped_ffn {t} tokens x top-{k} over {e} x {d} x "
+            f"{f} ({hit} experts hit): max abs err {err:.3e} (|y| "
+            f"{scale:.3f}); kernel {phases[-1]['kernel_only_ms']} ms, call "
+            f"{phases[-1]['call_ms']:.4f} ms, plain loop "
+            f"{phases[-1]['plain_ms']:.4f} ms (bound {b_ms:.4f} ms {b_by})")
+        del x, idx, tok, offsets, counts, args, want
+    head = phases[0]
+    results["moe_grouped_ffn"] = dict(
+        shape=f"{GROUPED_FFN_TOKENS[0]} tokens x top-{k} over {e} x {d} x "
+              f"{f}", mismatches=0,
+        max_abs_err=max(ph["max_abs_err"] for ph in phases), library_ms=None,
+        **{key: head[key] for key in ("call_ms", "kernel_only_ms",
+                                      "plain_ms", "bound_ms", "bound_by")},
+        phases=phases)
+    del p
+    free_card()
+
+    # granite's decode at full width, two layers: the kernel on the path
+    run = GRANITE_DECODE
+    gcfg = replace(cfg, n_layers=len(run["layer_types"]),
+                   layer_types=run["layer_types"])
+    params = registry.init_params(
+        gcfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+    toks = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, gcfg.vocab, (run["batch"], run["prompt"] + run["steps"]))).to(dev)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        lg, cache = registry.prefill(
+            gcfg, params, {"tokens": toks[:, :run["prompt"]]},
+            cache_dtype=torch.float32, cap=run["prompt"] + run["steps"])
+        torch.cuda.synchronize()
+        reset_launches()
+        for i in range(run["steps"]):
+            pos = run["prompt"] + i
+            lg, cache = registry.decode_step(gcfg, params, cache,
+                                             toks[:, pos:pos + 1], pos)
+        torch.cuda.synchronize()
+    counts = dict(launches)
+    wall = time.perf_counter() - t0
+    n_attn = run["layer_types"].count("attention")
+    want = {"moe_grouped_ffn": run["steps"] * gcfg.n_layers,
+            "flash_attention": run["steps"] * n_attn}
+    if {name: counts[name] for name in want} != want or \
+            "graphs" not in cache or not bool(torch.isfinite(lg).all()):
+        raise AssertionError(f"granite decode: launches {counts}, want "
+                             f"{want}; graphs {'graphs' in cache}")
+    log(f"phase granite decode ({gcfg.n_layers} layers {run['layer_types']}"
+        f" at full width, batch {run['batch']}, {run['steps']} steps after "
+        f"a {run['prompt']}-token prefill): launches {counts}; wall "
+        f"{wall:.3f} s")
+    del params, cache, lg
+    free_card()
+    return {"launches": counts, "wall_s": wall}
 
 
 class AttendCheck:
@@ -2776,6 +2891,7 @@ def main() -> int:
     results: dict = {}
     kernel_phases(dev, results)
     flash_phase(dev, results)
+    granite = grouped_ffn_phase(dev, results)
 
     # main path 1: the checked egress path
     reset_launches()
@@ -2812,7 +2928,7 @@ def main() -> int:
     training = training_path(dev, smi)
     # the dry run: a host check, no kernel
     dry = dryrun_path()
-    for path in (examples, serve, chaos, timing, moe, meshed,
+    for path in (granite, examples, serve, chaos, timing, moe, meshed,
                  *families.values(), shared, training):
         for name, n in path["launches"].items():
             counts[name] += n
@@ -2840,7 +2956,8 @@ def main() -> int:
         f"shared experts at {shared['n_layers']} layers wall "
         f"{shared['wall_s']:.3f} s")
 
-    line = {"kernels": [], "main_path": main, "examples_path": examples,
+    line = {"kernels": [], "main_path": main, "granite_decode": granite,
+            "examples_path": examples,
             "serve_path": serve,
             "chaos_path": chaos, "timing_path": timing,
             "moe_serve_path": moe, "mesh_path": meshed,

@@ -2,6 +2,7 @@
 from .base import SHAPES, ArchConfig, ShapeConfig, smoke_config
 from .falcon_mamba_7b import CONFIG as falcon_mamba_7b
 from .gemma3_1b import CONFIG as gemma3_1b
+from .granite_4_0_h_small import CONFIG as granite_4_0_h_small
 from .glm4_9b import CONFIG as glm4_9b
 from .llama4_maverick_400b_a17b import CONFIG as llama4_maverick_400b_a17b
 from .olmoe_1b_7b import CONFIG as olmoe_1b_7b
@@ -20,8 +21,15 @@ ARCHS: dict[str, ArchConfig] = {
     ]
 }
 
+# archs of the port alone (no counterpart in the reference, so outside the
+# parity, dry-run and sharding sweeps over ARCHS)
+PORT_ARCHS: dict[str, ArchConfig] = {
+    c.arch_id: c for c in [granite_4_0_h_small]
+}
+
 
 def get_arch(arch_id: str) -> ArchConfig:
-    if arch_id not in ARCHS:
-        raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(ARCHS)}")
-    return ARCHS[arch_id]
+    known = {**ARCHS, **PORT_ARCHS}
+    if arch_id not in known:
+        raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(known)}")
+    return known[arch_id]

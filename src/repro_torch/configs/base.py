@@ -31,6 +31,18 @@ class ArchConfig:
     mrope_sections: tuple[int, int, int] | None = None
     tie_embeddings: bool = False
     embed_scale: bool = False                # gemma3 multiplies by sqrt(d)
+    # softmax scale of attention logits; None: 1 / sqrt(head_dim)
+    attention_multiplier: float | None = None
+    norm_eps: float = 1e-6                   # every RMSNorm of the model
+
+    # per-layer mixer pattern ("mamba" | "attention"), read for the first
+    # n_layers entries; None: the family's fixed layout
+    layer_types: tuple[str, ...] | None = None
+    # granite-style scalings: embeddings x embedding_multiplier, each
+    # residual branch x residual_multiplier, logits / logits_scaling
+    embedding_multiplier: float = 1.0
+    residual_multiplier: float = 1.0
+    logits_scaling: float = 1.0
 
     # MoE
     n_experts: int = 0
@@ -42,6 +54,7 @@ class ArchConfig:
     # "einsum": GShard one-hot-matmul dispatch (paper-faithful baseline);
     # "ep": shard_map expert-parallel sorted dispatch (beyond-paper, SSPerf)
     moe_impl: str = "einsum"
+    shared_expert_d_ff: int | None = None    # width of the shared MLP
 
     # SSM
     ssm_state: int = 0
@@ -182,4 +195,15 @@ def smoke_config(cfg: ArchConfig) -> ArchConfig:
         param_dtype="float32",
         remat="none",
         shared_attn_every=cfg.shared_attn_every and 2,
+        shared_expert_d_ff=128 if cfg.shared_expert_d_ff else None,
+        layer_types=_smoke_layer_types(cfg.layer_types),
     )
+
+
+def _smoke_layer_types(types):
+    """Four layers with every mixer kind of ``types``: each kind once, in
+    the order the pattern first uses it, then the first kind again."""
+    if types is None:
+        return None
+    kinds = list(dict.fromkeys(types))
+    return tuple(kinds + [kinds[0]] * (4 - len(kinds)))

@@ -19,7 +19,7 @@ import torch
 # plain version and counts nothing), so a run can show that its main path
 # went through the kernels.
 launches = {"memcrypt": 0, "permcheck": 0, "checked_memcrypt": 0,
-            "fabric_egress": 0, "flash_attention": 0}
+            "fabric_egress": 0, "flash_attention": 0, "moe_grouped_ffn": 0}
 
 
 def reset_launches() -> None:

@@ -1,4 +1,5 @@
-"""Build and load the port's kernel library (egress and flash attention).
+"""Build and load the port's kernel library (egress, flash attention and
+the dropless MoE's grouped expert FFN).
 
 The CUDA sources under ``csrc/`` are compiled at first use with ``nvcc``
 for ``sm_90a`` — one ``nvcc`` per ``.cu`` file, all started together, then
@@ -41,6 +42,9 @@ SIGNATURES = {
     # causal, window, workspace, (splits, chunk, k_begin, k_end), stream
     "flash_attention_launch": [_P, _P, _P, _P, _I32] + [_I64] * 18
     + [_F32, _I32, _I32, _P, _I32, _I32, _I32, _I32, _P],
+    # x, tok, offsets, w_gate, w_up, w_down, ws, h, y, n_slots, (e, d, f),
+    # splits, z, stream
+    "moe_grouped_ffn_launch": [_P] * 9 + [_I64] + [_I32] * 6 + [_P],
 }
 
 _lock = threading.Lock()

@@ -5,7 +5,9 @@ dense decoder LM calls `flash_attention` on the card.  It computes what
 the reference's Pallas kernel computes (online softmax with f32
 statistics, causal and optional sliding-window masks, queries aligned to
 the END of the keys, GQA head ``h`` reading kv head ``h // (H / Hkv)``,
-output in ``q.dtype``), for f32 and bf16 operands.  It has no backward,
+output in ``q.dtype``), for f32 and bf16 operands.  The logits' scale is
+``1 / sqrt(dh)`` unless the caller gives ``scale`` (granite's
+``attention_multiplier``).  It has no backward,
 as the reference's kernel has none: training attends through the
 attention layer's differentiable path, and the wrapper raises on CUDA
 operands that need a gradient rather than return an output that would
@@ -68,13 +70,17 @@ def _check_shapes(q, k, v, causal: bool):
                          "with the end of the keys)")
 
 
-def _masked_logits(q, k, causal: bool, window: int):
+def _scale(dh: int, scale: float | None) -> float:
+    return float(1.0 / np.sqrt(dh)) if scale is None else float(scale)
+
+
+def _masked_logits(q, k, causal: bool, window: int, scale: float | None):
     """f32 logits [B, Hkv, G, Sq, Sk] with the kernel's masks and NEG_INF."""
     b, h, sq, dh = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     qg = q.to(torch.float32).reshape(b, hkv, h // hkv, sq, dh)
     logits = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.to(torch.float32)) \
-        * (1.0 / np.sqrt(dh))
+        * _scale(dh, scale)
     q_pos = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
     k_pos = torch.arange(sk, device=q.device)[None, :]
     mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
@@ -85,7 +91,8 @@ def _masked_logits(q, k, causal: bool, window: int):
     return torch.where(mask, logits, NEG_INF)
 
 
-def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = -1):
+def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = -1,
+                          scale: float | None = None):
     """The plain version of the kernels: materialized f32 logits with the
     same masks and ``NEG_INF``, a full softmax, output in ``q.dtype``.
 
@@ -94,7 +101,8 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = -1):
     """
     _check_shapes(q, k, v, causal)
     b, h, sq, dh = q.shape
-    probs = torch.softmax(_masked_logits(q, k, causal, window), dim=-1)
+    probs = torch.softmax(_masked_logits(q, k, causal, window, scale),
+                          dim=-1)
     out = torch.einsum("bhgqk,bhkd->bhgqd", probs, v.to(torch.float32))
     return out.reshape(b, h, sq, dh).to(q.dtype)
 
@@ -139,7 +147,8 @@ def split_plan(b: int, h: int, hkv: int, sq: int, sk: int, dh: int, *,
 
 
 def flash_attention_split_plain(q, k, v, *, causal: bool = True,
-                                window: int = -1, plan: SplitPlan):
+                                window: int = -1, plan: SplitPlan,
+                                scale: float | None = None):
     """The plain version of the decode kernels' split + combine arithmetic.
 
     Each split of ``plan`` keeps its own ``(m_s, l_s, acc_s)`` over its keys
@@ -150,7 +159,7 @@ def flash_attention_split_plain(q, k, v, *, causal: bool = True,
     """
     _check_shapes(q, k, v, causal)
     b, h, sq, dh = q.shape
-    logits = _masked_logits(q, k, causal, window)
+    logits = _masked_logits(q, k, causal, window, scale)
     vf = v.to(torch.float32)
     ms, ls, accs = [], [], []
     for s in range(plan.splits):
@@ -186,20 +195,23 @@ def _check_aligned(name: str, t: torch.Tensor) -> None:
                          "kernels need aligned rows")
 
 
-def flash_attention(q, k, v, *, causal: bool = True, window: int = -1):
+def flash_attention(q, k, v, *, causal: bool = True, window: int = -1,
+                    scale: float | None = None):
     """Forward attention: the CUDA kernels on CUDA tensors, the plain
     version on CPU tensors.
 
     q: [B, H, Sq, dh]; k/v: [B, Hkv, Sk, dh], f32 or bf16, any 16-byte
     aligned strides with a contiguous head dim.  ``window > 0`` keeps keys
-    ``> pos - window``.  Returns [B, H, Sq, dh] in ``q.dtype``, laid out
+    ``> pos - window``; ``scale`` multiplies the logits (default
+    ``1 / sqrt(dh)``).  Returns [B, H, Sq, dh] in ``q.dtype``, laid out
     like ``q``.  One call counts one launch, also where the decode path
     runs its split and combine kernels.  Raises on CUDA operands that
     autograd records: the kernel is forward-only, and on DTensor operands.
     """
     reject_dtensors(q=q, k=k, v=v)
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, window=window)
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     scale=scale)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise RuntimeError(
             "flash_attention is forward-only (so is the reference's kernel): "
@@ -224,10 +236,11 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = -1):
         plan = split_plan(b, h, k.shape[1], sq, k.shape[2], dh,
                           causal=causal, window=window,
                           sms=_sm_count(q.device.index or 0))
-    return _launch(q, k, v, causal, window, plan)
+    return _launch(q, k, v, causal, window, plan, scale)
 
 
-def _launch(q, k, v, causal: bool, window: int, plan: SplitPlan | None):
+def _launch(q, k, v, causal: bool, window: int, plan: SplitPlan | None,
+            scale: float | None = None):
     """Launch on checked CUDA operands; ``plan`` (the decode path's key
     splits) is required for Sq <= DECODE_MAX_SQ and ignored otherwise."""
     b, h, sq, dh = q.shape
@@ -241,7 +254,7 @@ def _launch(q, k, v, causal: bool, window: int, plan: SplitPlan | None):
     strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
     launch("flash_attention_launch", q.data_ptr(), k.data_ptr(),
            v.data_ptr(), out.data_ptr(), _DTYPES[q.dtype], b, h, k.shape[1],
-           sq, k.shape[2], dh, *strides, float(1.0 / np.sqrt(dh)),
+           sq, k.shape[2], dh, *strides, _scale(dh, scale),
            int(causal), int(window), None if ws is None else ws.data_ptr(),
            plan.splits, plan.chunk, plan.k_begin, plan.k_end,
            torch.cuda.current_stream(q.device).cuda_stream)

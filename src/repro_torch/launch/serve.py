@@ -25,11 +25,15 @@ serving-side integration end to end on the port's `ShardedFabric`:
     tenants keep serving.
 
 Decoding runs eager on the model in `repro_torch.models` (every attention
-through the flash kernel on the card): dense, vlm, moe, ssm and hybrid
-serve, each with the cache its family's `registry.prefill` returns.  The
+through the flash kernel on the card; hybrid_moe replays CUDA graphs from
+a cache's second decode step on): dense, vlm, moe, ssm, hybrid and
+hybrid_moe (granite: Mamba2 state and a KV cache side by side) serve, each
+with the cache its family's `registry.prefill` returns.  The
 encoder-decoder family needs frames to encode and the engine has none, so
 its first prefill raises a ValueError that says so (the reference crashes
-there).  Batching: every active tenant
+there).  Each tenant keeps its last decode step's logits (``logits``, the
+tensor itself).  With `tracing` on, ``serve.step`` spans one tick and
+``serve.decode`` one tenant's decode.  Batching: every active tenant
 decodes one token per engine `step()`; finished groups retire and refill
 from the tenant's queue, and tenants can join or leave between steps.
 """
@@ -42,7 +46,8 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from ..configs import ARCHS, smoke_config
+from .. import tracing
+from ..configs import ARCHS, PORT_ARCHS, get_arch, smoke_config
 from ..core import (FAULT_DESYNC, FAULT_NONE, SharedTensorPool,
                     pack_ext_addr)
 from ..core.fabric import ShardedFabric
@@ -67,6 +72,11 @@ class Tenant:
     cache: object = None
     cur: torch.Tensor | None = None
     out: list | None = None
+    # the prefill's pick for each sequence: the first token decode consumes
+    # (``out`` holds the prompt, then the tokens decode picks, as in the
+    # reference, so it starts after this one)
+    first: torch.Tensor | None = None
+    logits: torch.Tensor | None = None   # the last decode step's [B, 1, V]
     plen: int = 0
     pos: int = 0
     gen_left: int = 0
@@ -208,6 +218,7 @@ class ServeEngine:
         t.cache = cache
         t.out = [list(p) for p in group]
         t.cur = logits[:, -1].argmax(dim=-1)[:, None].to(torch.int32)
+        t.first = t.cur[:, 0]
         t.plen = plen
         t.pos = plen
         t.gen_left = gen
@@ -218,6 +229,7 @@ class ServeEngine:
         t.aborted += t.group
         t.group = None
         t.cache = None
+        t.logits = None
 
     def _fused_step_egress(self, active: list) -> list:
         """One batched kernel launch for the whole step: every active
@@ -250,6 +262,10 @@ class ServeEngine:
         Returns {tenant: {"aborted": bool, "fault": int, "retired": int}}
         for tenants that made progress this tick.
         """
+        with tracing.span("serve.step"):
+            return self._step(gen, only)
+
+    def _step(self, gen: int, only: str | None) -> dict:
         results: dict[str, dict] = {}
         # phase 1: start groups, collect every active tenant's KV touch set
         active: list[tuple[Tenant, torch.Tensor]] = []
@@ -321,9 +337,10 @@ class ServeEngine:
                 results[t.name] = {"aborted": True, "stalled": False,
                                    "fault": fault, "retired": 0}
                 continue
-            logits, t.cache = registry.decode_step(
-                self.cfg, self.params, t.cache, t.cur, t.pos)
-            t.cur = logits[:, -1].argmax(dim=-1)[:, None].to(torch.int32)
+            with tracing.span("serve.decode"):
+                t.logits, t.cache = registry.decode_step(
+                    self.cfg, self.params, t.cache, t.cur, t.pos)
+            t.cur = t.logits[:, -1].argmax(dim=-1)[:, None].to(torch.int32)
             # one host read-back per generated token, as the reference
             for i, tok in enumerate(t.cur[:len(t.group), 0].tolist()):
                 t.out[i].append(tok)
@@ -337,6 +354,7 @@ class ServeEngine:
                 retired = len(t.group)
                 t.group = None
                 t.cache = None
+                t.logits = None
             results[t.name] = {"aborted": False, "stalled": False,
                                "fault": FAULT_NONE, "retired": retired}
         return results
@@ -436,7 +454,8 @@ def run_demo(engine: ServeEngine, *, requests: int, prompt_len: int,
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen1.5-0.5b", choices=list(ARCHS))
+    ap.add_argument("--arch", default="qwen1.5-0.5b",
+                    choices=list(ARCHS) + list(PORT_ARCHS))
     ap.add_argument("--preset", default="smoke", choices=["smoke", "full"])
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=32)
@@ -447,8 +466,8 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
-    cfg = ARCHS[args.arch] if args.preset == "full" \
-        else smoke_config(ARCHS[args.arch])
+    cfg = get_arch(args.arch) if args.preset == "full" \
+        else smoke_config(get_arch(args.arch))
     params = registry.init_params(
         cfg, torch.Generator(device=dev).manual_seed(0), dev)
     engine = ServeEngine(cfg, params, batch=args.batch,

@@ -3,7 +3,8 @@
   * GQA with any kv-head count (incl. MQA kv=1 and MHA kv=heads)
   * optional QKV bias (qwen1.5), qk-norm (qwen3), partial rotary (glm4)
   * sliding-window masks (gemma3 local layers)
-  * standard RoPE or M-RoPE (qwen2-vl)
+  * standard RoPE or M-RoPE (qwen2-vl), or none (NoPE: ``positions``
+    None), and a softmax scale other than ``1 / sqrt(dh)`` (granite)
   * KV-cache prefill (bulk write) and decode (single-position update)
   * cross attention over an encoder memory (seamless enc-dec), and the
     encoder's bidirectional self attention as cross attention onto itself
@@ -89,11 +90,12 @@ class Attention(nn.Module):
     def forward(self, x, positions, *, theta: float = 10000.0,
                 rotary_dim: int | None = None, window: int = -1,
                 mrope_sections=None, cache: KVCache | None = None,
-                cache_pos: int | None = None):
+                cache_pos: int | None = None, scale: float | None = None):
         """Train / no-cache: full causal (+window) attention over x.
         Prefill: cache given, cache_pos None -> bulk-write k/v at [0, S).
         Decode: cache given, cache_pos an int -> write at cache_pos, attend
         over cache[<= cache_pos] (with optional window).
+        ``scale`` multiplies the logits (default ``1 / sqrt(dh)``).
         Returns (y, cache)."""
         b, s, _ = x.shape
         if is_dtensor(x) and positions is not None and \
@@ -121,6 +123,9 @@ class Attention(nn.Module):
             k = constrain(k, BATCH, None, MODEL)
             v = constrain(v, BATCH, None, MODEL)
         on_card = x.device.type == "cuda"
+        # the kernel hook sees ``scale`` only where one is set, so a caller's
+        # wrapper of ``attend`` keeps its (q, k, v, causal, window) form
+        scaled = {} if scale is None else {"scale": scale}
         if cache is not None and cache_pos is not None:    # decode: s == 1
             pos = int(cache_pos)
             cap = cache.k.shape[2]
@@ -134,25 +139,26 @@ class Attention(nn.Module):
                 out = self.attend(q.transpose(1, 2),
                                   cache.k[:, :, :pos + 1],
                                   cache.v[:, :, :pos + 1], causal=True,
-                                  window=window).transpose(1, 2)
+                                  window=window, **scaled).transpose(1, 2)
             else:
                 ki = torch.arange(cap, device=x.device)
                 w_eff = window if window > 0 else 2 ** 30
                 mask = ((ki <= pos) & (ki > pos - w_eff))[None, None, None]
                 out = _sdpa(q, cache.k.transpose(1, 2),
-                            cache.v.transpose(1, 2), mask)
+                            cache.v.transpose(1, 2), mask, scale)
         else:
             if cache is not None:                          # prefill
                 _write_cache(cache, 0, k, v)
             if on_card and (cache is not None or not records_grad(q, k, v)):
                 out = self.attend(q.transpose(1, 2), k.transpose(1, 2),
                                   v.transpose(1, 2), causal=True,
-                                  window=window).transpose(1, 2)
+                                  window=window, **scaled).transpose(1, 2)
             elif s >= CHUNKED_THRESHOLD:
-                out = chunked_attention(q, k, v, window=window, chunk=CHUNK)
+                out = chunked_attention(q, k, v, window=window, chunk=CHUNK,
+                                        scale=scale)
             else:
                 out = _sdpa(q, k, v, causal_mask(s, s, window=window,
-                                                 device=x.device))
+                                                 device=x.device), scale)
         if seq_parallel:
             out = constrain(out, BATCH, MODEL)
         else:
@@ -310,19 +316,21 @@ def records_grad(*tensors) -> bool:
     return any(t.requires_grad for t in tensors)
 
 
-def _sdpa(q, k, v, mask):
-    """q: [B,S,H,Dh], k/v: [B,T,Hkv,Dh], mask: broadcastable [B,1,S,T].
+def _sdpa(q, k, v, mask, scale: float | None = None):
+    """q: [B,S,H,Dh], k/v: [B,T,Hkv,Dh], mask: broadcastable [B,1,S,T];
+    logits times ``scale`` (default ``1 / sqrt(Dh)``).
     GQA groups the query heads ([B,S,Hkv,G,Dh]); no head repeat.  DTensor
     operands go through `_per_shard`."""
     if is_dtensor(q):
         return _per_shard(lambda q, k, v, mask, row0, group:
-                          _sdpa(q, k, v, mask) if group is None else
-                          _sdpa_seq_sharded(q, k, v, mask, group),
+                          _sdpa(q, k, v, mask, scale) if group is None else
+                          _sdpa_seq_sharded(q, k, v, mask, group, scale),
                           q, k, v, mask)
     b, s, hq, dh = q.shape
     hkv = k.shape[2]
     qg = q.reshape(b, s, hkv, hq // hkv, dh)
-    logits = torch.einsum("bshge,bthe->bhgst", qg, k) * (1.0 / np.sqrt(dh))
+    logits = torch.einsum("bshge,bthe->bhgst", qg, k) * \
+        (1.0 / np.sqrt(dh) if scale is None else scale)
     if mask is not None:
         logits = torch.where(mask[:, :, None], logits, NEG_INF)
     probs = torch.softmax(logits.to(torch.float32), dim=-1)
@@ -331,7 +339,7 @@ def _sdpa(q, k, v, mask):
 
 
 def chunked_attention(q, k, v, *, window=-1, chunk: int = 1024,
-                      offset: int = 0):
+                      offset: int = 0, scale: float | None = None):
     """Online-softmax attention over KV chunks (the reference's XLA
     flash-attention): carries (acc [B,Hkv,G,Sq,dh] f32, m, l) across
     chunks and touches one [Sq, chunk] logits tile at a time.
@@ -342,12 +350,13 @@ def chunked_attention(q, k, v, *, window=-1, chunk: int = 1024,
     """
     if is_dtensor(q):
         return _per_shard(lambda q, k, v, _, row0, group: chunked_attention(
-            q, k, v, window=window, chunk=chunk, offset=offset + row0),
+            q, k, v, window=window, chunk=chunk, offset=offset + row0,
+            scale=scale),
             q, k, v, None)
     b, sq, hq, dh = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
-    scale = 1.0 / np.sqrt(dh)
+    scale = 1.0 / np.sqrt(dh) if scale is None else scale
     qg = q.reshape(b, sq, hkv, g, dh)
     qi = torch.arange(sq, device=q.device) + offset          # [Sq] abs pos
     w_eff = window if window > 0 else 2 ** 30
@@ -464,7 +473,7 @@ def _per_shard(body, q, k, v, mask):
         q, k, v, mask)
 
 
-def _sdpa_seq_sharded(q, k, v, mask, group):
+def _sdpa_seq_sharded(q, k, v, mask, group, scale: float | None = None):
     """`_sdpa` of local shards when k/v hold this rank's part of the
     sequence: local logits, then the softmax's max and sum and the
     weighted values all-reduced over ``group`` (flash decoding)."""
@@ -472,7 +481,8 @@ def _sdpa_seq_sharded(q, k, v, mask, group):
     b, s, hq, dh = q.shape
     hkv = k.shape[2]
     qg = q.reshape(b, s, hkv, hq // hkv, dh)
-    logits = torch.einsum("bshge,bthe->bhgst", qg, k) * (1.0 / np.sqrt(dh))
+    logits = torch.einsum("bshge,bthe->bhgst", qg, k) * \
+        (1.0 / np.sqrt(dh) if scale is None else scale)
     if mask is not None:
         logits = torch.where(mask[:, :, None], logits, NEG_INF)
     logits = logits.to(torch.float32)

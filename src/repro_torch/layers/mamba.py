@@ -64,11 +64,13 @@ def _out_proj(y, w):
 
 def _causal_conv(w, b, x, conv_state):
     """Depthwise causal conv.  x: [B, S, C], w: [W, C], conv_state:
-    [B, W-1, C].  Returns (y, new_state: the last W-1 inputs)."""
+    [B, W-1, C].  Returns (y, new_state: the last W-1 inputs, a copy: a
+    view would keep the whole padded input of a prefill alive in the
+    cache, 1 GB a layer at granite's 16 x 2,048 tokens)."""
     wlen, s = w.shape[0], x.shape[1]
     xp = torch.cat([conv_state.to(x.dtype), x], dim=1)
     y = sum(xp[:, i:i + s, :] * w[i] for i in range(wlen))
-    return y + b, xp[:, s:, :]
+    return y + b, xp[:, s:, :].clone()
 
 
 def _ssm_scan(h, step, *streams):
@@ -303,8 +305,8 @@ def init_mamba2_cache(batch: int, di: int, gn: int, nh: int, head_dim: int,
 
 
 def mamba2(p: Mamba2, x, cache: Mamba2Cache | None = None, *,
-           head_dim: int = 64, n_groups: int = 1):
-    """x: [B, S, D] -> (y, new_cache)."""
+           head_dim: int = 64, n_groups: int = 1, eps: float = 1e-6):
+    """x: [B, S, D] -> (y, new_cache); ``eps`` is the gated norm's."""
     b, s, d = x.shape
     di = p.w_out.shape[0]
     nh = p.a_log.shape[0]
@@ -352,5 +354,5 @@ def mamba2(p: Mamba2, x, cache: Mamba2Cache | None = None, *,
         h_t, y = _ssm_scan(cache.ssm, _mamba2_step(), *streams)  # [B,S,H,Dh]
     y = y + xi.to(f32) * p.d_skip[:, None]
     y = y.reshape(b, s, di).to(x.dtype)
-    y = rms_norm(p.norm_scale, y * F.silu(z))
+    y = rms_norm(p.norm_scale, y * F.silu(z), eps)
     return _out_proj(y, p.w_out), Mamba2Cache(new_cx, new_cb, new_cc, h_t)

@@ -3,7 +3,8 @@ the input specs of each (arch x shape) step.
 
 Every family of the reference is here: dense, moe and vlm on
 `repro_torch.models.lm`, ssm on `.ssm`, hybrid on `.hybrid` and encdec on
-`.encdec`, each with its training loss (`loss_fn`).  `input_specs(cfg,
+`.encdec`, each with its training loss (`loss_fn`), and the port's own
+hybrid_moe (granite) on `.hybrid_moe`.  `input_specs(cfg,
 shape)` gives every input of a step as a tensor on the meta device: shape
 and dtype, no allocation.
 """
@@ -14,11 +15,12 @@ from types import ModuleType
 import torch
 
 from ..configs.base import SHAPES, ArchConfig, ShapeConfig
-from . import encdec, hybrid, lm, ssm
+from . import encdec, hybrid, hybrid_moe, lm, ssm
 
 _FAMILY_MOD: dict[str, ModuleType] = {
     "dense": lm, "moe": lm, "vlm": lm,
     "ssm": ssm, "hybrid": hybrid, "encdec": encdec,
+    "hybrid_moe": hybrid_moe,
 }
 
 

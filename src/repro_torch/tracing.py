@@ -1,4 +1,5 @@
-"""Host spans of the port's own work, recorded only when switched on.
+"""Host spans and counters of the port's own work, recorded only when
+switched on.
 
 A span is one named stretch of host time, ``Span(name, start_ns, end_ns,
 parent)``: ``time.perf_counter_ns`` at its start and end, and ``parent``
@@ -22,6 +23,29 @@ on a path that runs when nothing changed:
   commit, the journal append and the BISnp publish;
 - ``bus.quiesce``: ``BISnpBus.quiesce``, every queued event delivered to
   every host.
+
+Serving spans, one set a tick:
+
+- ``serve.step``: one ``ServeEngine.step`` (the checks, the fused egress
+  and every tenant's decode), made of ``serve.decode`` (one tenant's
+  ``registry.decode_step``);
+- ``hybrid_moe.mamba`` and ``hybrid_moe.attention``: one mixer of the
+  hybrid MoE family (granite), ``moe.grouped_ffn``: one call of the
+  dropless MoE's grouped expert FFN.
+
+A counter is a sum kept while counters are on: ``count(name, value)``
+adds a Python number, or a tensor on its own device with no read-back,
+and ``take_counters()`` reads them all once.  Counters and spans switch
+apart (`enable`): a profiled window can count with no span on, since a
+span is a profiler range as well.
+
+- ``moe.slots``: (token, expert) slots of the dropless MoE's calls;
+- ``moe.experts_hit``: experts with at least one slot, summed over calls.
+
+With routes on, the hybrid MoE family keeps each token's experts in its
+cache (``cache["routes"]``: per layer, a list of [B, tokens, K] device
+tensors, one a call), so that a judge can tell a routing decided by
+rounding from a wrong one.
 """
 from __future__ import annotations
 
@@ -44,18 +68,55 @@ class _Recorder:
         self.on = False
         self.spans: list[Span] = []
         self.open: list[int] = []     # indices of the spans not yet closed
+        self.counting = False
+        self.counters: dict = {}
+        self.routing = False
 
 
 _REC = _Recorder()
 _OFF = contextlib.nullcontext()
 
 
-def enable() -> None:
-    _REC.on = True
+def enable(*, spans: bool = True, counters: bool = True,
+           routes: bool = False) -> None:
+    """Switch spans and counters on (either one alone by its flag), and
+    the record of the MoE's routing with ``routes``."""
+    _REC.on = _REC.on or spans
+    _REC.counting = _REC.counting or counters
+    _REC.routing = _REC.routing or routes
 
 
 def disable() -> None:
     _REC.on = False
+    _REC.counting = False
+    _REC.routing = False
+
+
+def routes_on() -> bool:
+    return _REC.routing
+
+
+def spans_on() -> bool:
+    return _REC.on
+
+
+def counting() -> bool:
+    return _REC.counting
+
+
+def count(name: str, value) -> None:
+    """Add ``value`` to counter ``name`` while counters are on: a tensor
+    is summed on its device, never read back here."""
+    if _REC.counting:
+        acc = _REC.counters.get(name)
+        _REC.counters[name] = value if acc is None else acc + value
+
+
+def take_counters() -> dict[str, int]:
+    """Every counter's sum since the last ``take_counters``, read once (a
+    device counter waits for its device here); the recorder keeps none."""
+    got, _REC.counters = _REC.counters, {}
+    return {name: int(v) for name, v in got.items()}
 
 
 def take() -> list[Span]:

@@ -817,3 +817,117 @@ def test_olmoe_decode_on_the_1x1_nccl_mesh_equals_no_mesh(cuda):  # noqa: F811
         assert f1 == f0 == cfg.n_layers * 4
     finally:
         dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# granite-4.0-h-small: the grouped expert FFN kernel, flash with the
+# config's scale and no rotary, and the family on the card
+# ---------------------------------------------------------------------------
+
+def _grouped_ffn_case(cuda, t, e=72, d=4096, f=768, k=10, seed=0,  # noqa: F811
+                      every=None, none=()):
+    """(x, tok, offsets, weights) of ``t`` tokens routed top-``k`` by a
+    random router; ``every`` takes every token, ``none`` no token."""
+    from repro_torch.layers import moe_dropless as tmd
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    p = tmoe.init_moe(d, f, e, torch.float32, g, cuda)
+    x = torch.randn((t, d), generator=g, device=cuda)
+    logits = x @ p.router
+    if every is not None:
+        logits[:, every] = 1e4
+    logits[:, list(none)] = -1e4
+    idx = logits.topk(k, dim=-1).indices
+    _, tok, offsets, counts = tmd.sort_slots(idx, e)
+    return x, tok, offsets, counts, p
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t, every, none", [
+    (16, None, ()), (16, 3, (0, 1, 70, 71)), (2048, None, ()),
+    (2048, 0, (5,)), (8192, None, ())])
+def test_moe_grouped_ffn_kernel_at_published_widths(  # noqa: F811
+        cuda, t, every, none):
+    """72 experts x 4096 x 768, top-10: the kernel against the per-expert
+    loop, at a decode's 16 tokens, 2,048 and a prefill chunk's 8,192,
+    with an expert that takes every token and experts that take none.  Both sum f32 products of 4096 and 768 terms in other orders:
+    outputs of order 1 agree to 1e-4."""
+    from repro_torch.kernels import moe_grouped_ffn as tmg
+    x, tok, offsets, counts, p = _grouped_ffn_case(cuda, t, every=every,
+                                                   none=none)
+    if every is not None:
+        assert int(counts[every]) == t
+    assert all(int(counts[i]) == 0 for i in none)
+    args = (x, tok, offsets, p.w_gate, p.w_up, p.w_down)
+    got = _launched("moe_grouped_ffn", lambda: tmg.moe_grouped_ffn(*args))
+    want = tmg.moe_grouped_ffn_plain(*args)
+    assert got.shape == (t * 10, 4096)
+    assert float(want.abs().max()) > 0.5
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq, sk", [(1, 2049), (16, 300), (128, 128)])
+def test_flash_attention_kernel_with_granites_scale(  # noqa: F811
+        cuda, sq, sk):
+    """scale = attention_multiplier (1/128 at head dim 128, not
+    1/sqrt(128)), GQA 32/8, f32: the kernel against the plain path."""
+    rng = np.random.default_rng(sq + sk)
+    q, k, v = _qkv(rng, 2, 32, 8, sq, sk, 128, torch.float32, cuda)
+    got = _launched("flash_attention", lambda: tfa.flash_attention(
+        q, k, v, causal=True, scale=1 / 128))
+    want = tfa.flash_attention_plain(q, k, v, causal=True, scale=1 / 128)
+    other = tfa.flash_attention_plain(q, k, v, causal=True)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    assert float((other - want).abs().max()) > 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layer_types", [
+    ("mamba", "attention", "mamba"),
+    ("mamba", "attention", "mamba", "attention")])
+def test_granite_on_the_card_matches_the_plain_reference(  # noqa: F811
+        cuda, layer_types):
+    """The hybrid_moe family at smoke widths (both mixers, shared expert),
+    its weights drawn by the plain reference and loaded by the port's
+    loader: prefill and eight decode steps on the card (flash with the
+    config's scale, the grouped kernel at prefill and decode, the steps
+    from the third on replayed from CUDA graphs) against the plain
+    reference's full forward on the card, within 1e-5 (f32 in another
+    order)."""
+    import json
+
+    import plain_granite as pg
+    from repro_torch.models import hybrid_moe as thm
+    pub = json.loads((Path(__file__).resolve().parents[1] / "scbench" /
+                      "configs" / "granite-4.0-h-small.json").read_text())
+    pub.update(hidden_size=128, num_attention_heads=4, num_key_value_heads=2,
+               head_dim=32, intermediate_size=64,
+               shared_intermediate_size=128, vocab_size=512,
+               num_local_experts=8, num_experts_per_tok=2, mamba_d_state=16,
+               mamba_d_head=32, mamba_n_heads=8,
+               num_hidden_layers=len(layer_types),
+               layer_types=list(layer_types))
+    cfg = thm.config_from_published(pub)
+    w = pg.init_weights(pub, torch.Generator(device=cuda).manual_seed(7),
+                        cuda)
+    params = thm.from_published(cfg, w)
+    toks = torch.from_numpy(np.random.default_rng(7).integers(
+        0, cfg.vocab, (2, 24))).to(cuda)
+    reset_launches()
+    lg, cache = registry.prefill(cfg, params, {"tokens": toks[:, :16]},
+                                 cache_dtype=torch.float32, cap=32)
+    got = [lg[:, 0]]
+    for pos in range(16, 24):
+        lg, cache = registry.decode_step(cfg, params, cache,
+                                         toks[:, pos:pos + 1], pos)
+        # from the third step on, the graphs' logits buffer (overwritten)
+        got.append(lg[:, 0].clone())
+    torch.cuda.synchronize()
+    assert "graphs" in cache
+    n_attn = layer_types.count("attention")
+    assert launches["moe_grouped_ffn"] == 9 * len(layer_types)
+    assert launches["flash_attention"] == 9 * n_attn
+    got = torch.stack(got, 1)
+    for b in range(2):
+        want = pg.forward(w, pub, toks[b])[15:]
+        torch.testing.assert_close(got[b], want, rtol=1e-5, atol=1e-5)
