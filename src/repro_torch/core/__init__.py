@@ -28,6 +28,7 @@ from .checker import (
     cached_check_access,
     check_access,
     desync_check_result,
+    fold_perm_cache_invalidations,
     invalidate_perm_cache,
     make_hwpid_local,
     make_perm_cache,

@@ -248,6 +248,48 @@ def invalidate_perm_cache(cache: PermCache, start_page, n_pages, epoch, *,
     )
 
 
+def fold_perm_cache_invalidations(cache: PermCache, events) -> PermCache:
+    """`invalidate_perm_cache` applied once per event of ``events``, in
+    order, as one pass over the cache.  An event is a tuple
+    ``(start_page, n_pages, epoch, min_shifted_entry)``, the last None
+    where the commit shifted no index.
+
+    A drop is idempotent and nothing refills a line between the events, so
+    a line ends dropped exactly when some event's drop mask holds for it in
+    the cache as given: its page in the union of the events' ranges, its
+    index at or above the least threshold, or any line at all where an
+    event jumped the running fence by more than one epoch.  The fence
+    arithmetic runs on the host; the device runs the same few operations
+    whatever the number of events.  ``plru``, ``hits`` and ``misses`` are
+    left as they are."""
+    if not events:
+        return cache
+    epoch, jumped, lowest, bounds = cache.epoch, False, _INT32_MAX, []
+    for start, n, ev_epoch, shifted in events:
+        start, ev_epoch = int(start), int(ev_epoch)
+        jumped = jumped or ev_epoch > epoch + 1
+        epoch = max(epoch, ev_epoch)
+        if shifted is not None:
+            lowest = min(lowest, int(shifted))
+        end = (start + int(n) + (1 << 31)) % (1 << 32) - (1 << 31)
+        if start < end:                  # else the range holds no page
+            bounds.append((start, end))
+    if jumped:
+        return cache._replace(tag=torch.full_like(cache.tag, -1),
+                              entry=torch.full_like(cache.entry, -1),
+                              epoch=epoch)
+    drop = cache.entry >= lowest
+    if bounds:
+        b = torch.tensor(bounds, dtype=torch.int64, device=cache.tag.device)
+        tag = cache.tag[..., None]
+        drop = drop | ((tag >= b[:, 0]) & (tag < b[:, 1])).any(dim=-1)
+    return cache._replace(
+        tag=torch.where(drop, -1, cache.tag),
+        entry=torch.where(drop, -1, cache.entry),
+        epoch=epoch,
+    )
+
+
 def _finalize(table, hwpid_local, hwpid, page, is_write, idx, probes):
     """Steps 1+3+4 of the checker, shared by the cached and uncached paths."""
     has_abits = hwpid > 0

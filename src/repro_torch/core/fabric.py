@@ -23,15 +23,19 @@ never a wrong verdict, because the checker's range test is exact.
 Observation model
 -----------------
 The committed `HostTable` is ground truth; the `PermCache` models what the
-host has *observed through BISnp delivery*.  While a host lags the bus its
-cache epoch trails the table epoch, so `cached_check_access` revalidates
-hits against the live shard — stale mappings degrade to misses, never stale
-grants.  Cached entry indices are SHARD-LOCAL while
-`BISnpEvent.min_entry_idx` is GLOBAL; the global index is forwarded as the
-drop threshold (a shard-local rank never exceeds its global index), and
-shard extraction diffs the kept GLOBAL index set per epoch and flushes the
-cache's index mappings whenever membership moved (`_resident_entries`) —
-that diff is the correctness backstop.
+host has *observed through BISnp delivery*.  Delivery does the bus's
+bookkeeping at once but holds each targeted drop; the next read of
+`HostRuntime.permcache` folds the held drops into the cache in one pass,
+so every reader sees the cache that applying each drop on delivery gives,
+and a host that never reads its cache runs no drop on the device.  While
+a host lags the bus its cache epoch trails the table epoch, so
+`cached_check_access` revalidates hits against the live shard — stale
+mappings degrade to misses, never stale grants.  Cached entry indices are
+SHARD-LOCAL while `BISnpEvent.min_entry_idx` is GLOBAL; the global index is
+forwarded as the drop threshold (a shard-local rank never exceeds its
+global index), and shard extraction diffs the kept GLOBAL index set per
+epoch and flushes the cache's index mappings whenever membership moved
+(`_resident_entries`) — that diff is the correctness backstop.
 
 Multi-tenant hosts
 ------------------
@@ -54,8 +58,8 @@ import torch
 
 from .. import tracing
 from ..kernels import resolve_device
-from .checker import (PERM_CACHE_BYTES, cached_check_access,
-                      desync_check_result, invalidate_perm_cache,
+from .checker import (PERM_CACHE_BYTES, PermCache, cached_check_access,
+                      desync_check_result, fold_perm_cache_invalidations,
                       make_hwpid_local, make_perm_cache)
 from .fm import BISnpEvent, FabricManager, FMUnavailable, Proposal
 from .table import EMPTY_START, PERM_RW, PermissionTable, _NO_END, as_int32
@@ -73,6 +77,11 @@ def _permcheck_mod():
     return permcheck
 
 
+# back-invalidates a host holds before its PermCache is read; delivery
+# folds them into the cache once it holds more
+PENDING_BISNP_CAP = 256
+
+
 class HostRuntime:
     """Per-host data plane: SpaceEngine + fenced PermCache + resident shard."""
 
@@ -88,9 +97,14 @@ class HostRuntime:
         self._extra_ranges: list[tuple[int, int]] = []
         self.hwpids: set[int] = set()
         self.perm_cache_bytes = perm_cache_bytes
+        # (start_page, n_pages, epoch, min_entry_idx) of the drops delivered
+        # since the cache was last read, folded in at the next read
+        self._pending: list[tuple] = []
         self.permcache = make_perm_cache(perm_cache_bytes,
                                          epoch=fabric.fm.epoch,
                                          device=self.device)
+        self.bisnp_deferred = 0   # back-invalidates held for a later read
+        self.bisnp_flushes = 0    # folded passes run over the cache
         self.views = _permcheck_mod().ShardViewCache()
         self.bisnp_seen = 0
         self.shard_rebuilds = 0
@@ -118,14 +132,45 @@ class HostRuntime:
         self._hwpid_local: torch.Tensor | None = None
         fabric.fm.bus.attach(host_id, self.on_bisnp)
 
+    # -- the PermCache, with the drops held for its next read ---------------
+    @property
+    def permcache(self) -> PermCache:
+        """This host's PermCache as applying every delivered drop at once
+        would leave it: the drops held since the last read are folded in
+        first, in one pass."""
+        self._fold()
+        return self._permcache
+
+    @permcache.setter
+    def permcache(self, cache: PermCache) -> None:
+        """Install ``cache``; drops held for the one it replaces lapse."""
+        self._permcache = cache
+        self._pending = []
+
+    def _fold(self) -> None:
+        if self._pending:
+            self._permcache = fold_perm_cache_invalidations(
+                self._permcache, self._pending)
+            self._pending = []
+            self.bisnp_flushes += 1
+
+    def _defer(self, start_page: int, n_pages: int, epoch: int,
+               min_entry_idx: int | None) -> None:
+        """Hold one targeted drop for the cache's next read, folding what
+        is held at once when it would pass `PENDING_BISNP_CAP`."""
+        if len(self._pending) >= PENDING_BISNP_CAP:
+            self._fold()
+        self._pending.append((start_page, n_pages, epoch, min_entry_idx))
+
     # -- bus consumer --------------------------------------------------------
     def on_bisnp(self, ev: BISnpEvent) -> None:
-        """Apply one delivered back-invalidate: targeted PermCache drop with
-        the epoch fence's replay/gap semantics, after matching the event's
-        bus sequence against this host's expected stream.  A hole (lost
-        copy) records the missing sequences and desyncs the host; a late
-        copy that fills the last hole heals it; a ``snapshot=True`` event
-        rebuilds the whole view."""
+        """Take one delivered back-invalidate: match the event's bus
+        sequence against this host's expected stream, then hold the
+        targeted PermCache drop, with the epoch fence's replay/gap
+        semantics, for the cache's next read.  A hole (lost copy) records
+        the missing sequences and desyncs the host; a late copy that fills
+        the last hole heals it; a ``snapshot=True`` event rebuilds the
+        whole view."""
         self.bisnp_seen += 1
         if self.fabric.host_monitor is not None:
             self.fabric.host_monitor.beat(self.host_id)
@@ -147,9 +192,8 @@ class HostRuntime:
                     if not self._missing and not self.quarantined:
                         self.self_heals += 1
                         self._reset_backoff()
-        self.permcache = invalidate_perm_cache(
-            self.permcache, ev.start_page, ev.n_pages, ev.epoch,
-            min_shifted_entry=ev.min_entry_idx)
+        self._defer(ev.start_page, ev.n_pages, ev.epoch, ev.min_entry_idx)
+        self.bisnp_deferred += 1
 
     # -- loss recovery (fail closed, then resync) ----------------------------
     @property
@@ -249,11 +293,11 @@ class HostRuntime:
                 not np.array_equal(idx, self._shard_idx):
             # Shard MEMBERSHIP changed: later entries' shard-local ranks
             # shift and the cache's (page -> rank) mappings would dangle, so
-            # flush index mappings locally (the fence itself is untouched).
-            # Extraction always precedes the probe in `check`.
-            self.permcache = invalidate_perm_cache(
-                self.permcache, 0, 0, int(self.permcache.epoch),
-                min_shifted_entry=0)
+            # flush index mappings locally (the fence itself is untouched:
+            # the flush carries the epoch of the cache as held, which no
+            # held drop lowers, so it reads as a replay).  Extraction
+            # always precedes the probe in `check`.
+            self._defer(0, 0, self._permcache.epoch, 0)
         self._shard_idx = idx
         shard = (starts[idx].copy(), ends[idx].copy(),
                  ht.perms[:n][idx].copy())
@@ -804,10 +848,11 @@ class ShardedFabric:
         }
 
     def stats(self) -> dict:
-        """Deployment-wide counters (bus delivery, shard rebuilds/sizes,
+        """Deployment-wide counters (bus delivery, back-invalidates held
+        for a later read and folded passes, shard rebuilds/sizes,
         `ShardView` builds and views carried to a new epoch unbuilt, summed
         over hosts, rows written into stacked views) — read-only: never
-        forces a shard extraction or view rebuild."""
+        forces a shard extraction, view rebuild or fold."""
         bus = self.fm.bus
         rts = self.runtimes.values()
         return {
@@ -828,6 +873,8 @@ class ShardedFabric:
                 "snapshot_resyncs": sum(rt.snapshot_resyncs for rt in rts),
                 "denied_desync": sum(rt.denied_desync for rt in rts),
                 "fm_restarts": self.fm.restarts},
+            "bisnp": {"deferred": sum(rt.bisnp_deferred for rt in rts),
+                      "flushes": sum(rt.bisnp_flushes for rt in rts)},
             "shard_rebuilds": {h: rt.shard_rebuilds
                                for h, rt in self.runtimes.items()},
             "view_builds": sum(rt.views.rebuilds for rt in rts),

@@ -100,6 +100,75 @@ def test_invalidate_perm_cache_epoch_fence_matches():
         assert int(j.epoch) == got["epoch"]
 
 
+_INT32_MAX = int(np.iinfo(np.int32).max)
+
+
+def _bisnp_events(rng, epoch, n, *, jump):
+    """``n`` back-invalidates against a fence at ``epoch``: expected-next
+    events, duplicates and replays at or below the fence, with and without
+    a shift threshold, empty ranges, ranges wrapping int32, the membership
+    flush ``(0, 0, fence, 0)``; with ``jump``, one event that skips more
+    than one epoch."""
+    events, at_jump = [], int(rng.integers(0, n)) if jump else -1
+    for i in range(n):
+        kind = rng.choice(["next", "replay", "flush", "wrap", "empty"])
+        start, size = int(rng.integers(0, 600)), int(rng.integers(1, 80))
+        shifted = None if rng.random() < 0.6 else int(rng.integers(0, 60))
+        ev_epoch = epoch + 1 if kind == "next" else \
+            epoch - int(rng.integers(0, 3))
+        if i == at_jump:
+            ev_epoch = epoch + int(rng.integers(2, 5))
+        if kind == "flush":
+            start, size, ev_epoch, shifted = 0, 0, epoch, 0
+        elif kind == "wrap":     # start + n near or past INT32_MAX
+            start = _INT32_MAX - int(rng.integers(0, 40))
+            size = int(rng.integers(1, 200))
+        elif kind == "empty":
+            size = 0
+        events.append((start, size, ev_epoch, shifted))
+        epoch = max(epoch, ev_epoch)
+    return events
+
+
+@pytest.mark.parametrize("seed", range(8))
+def test_fold_perm_cache_invalidations_equals_the_sequence(seed):
+    """One folded pass over a random cache equals `invalidate_perm_cache`
+    applied once per event, in the port and in the JAX package, in every
+    field of the cache; odd seeds hold a fence jump."""
+    rng = np.random.default_rng(seed)
+    for n_events in (1, 2, 7, 40):
+        tag = rng.integers(0, 600, (64, 4))
+        tag[rng.random((64, 4)) < 0.1] = -1
+        tag[rng.random((64, 4)) < 0.1] = _INT32_MAX - 20
+        entry = np.where(tag >= 0, rng.integers(0, 60, (64, 4)), -1)
+        epoch = int(rng.integers(0, 10))
+        j = jc.make_perm_cache(epoch=epoch)
+        j = j._replace(tag=jnp.asarray(tag, jnp.int32),
+                       entry=jnp.asarray(entry, jnp.int32),
+                       plru=jnp.asarray(rng.integers(0, 8, 64), jnp.int32),
+                       hits=jnp.asarray(int(rng.integers(0, 1000))),
+                       misses=jnp.asarray(int(rng.integers(0, 1000))))
+        cache = convert.perm_cache_from_numpy(j, device="cpu")
+        events = _bisnp_events(rng, epoch, n_events, jump=seed % 2 == 1)
+        each = cache
+        for start, n, ev_epoch, shifted in events:
+            each = tc.invalidate_perm_cache(each, start, n, ev_epoch,
+                                            min_shifted_entry=shifted)
+            j = jc.invalidate_perm_cache(j, start, n, ev_epoch,
+                                         min_shifted_entry=shifted)
+        got = convert.perm_cache_to_numpy(
+            tc.fold_perm_cache_invalidations(cache, events))
+        for want in (convert.perm_cache_to_numpy(each),
+                     {f: np.asarray(getattr(j, f)) for f in j._fields}):
+            for f in ("tag", "entry", "plru"):
+                np.testing.assert_array_equal(
+                    np.asarray(want[f]).astype(np.uint32), got[f].astype(
+                        np.uint32), err_msg=f)
+            for f in ("hits", "misses", "epoch"):
+                assert int(want[f]) == got[f], f
+    assert tc.fold_perm_cache_invalidations(cache, []) is cache
+
+
 @pytest.mark.parametrize("ways", [1, 2, 4])
 @pytest.mark.parametrize("fenced", [True, False])
 def test_cached_check_access_state_matches(ways, fenced):

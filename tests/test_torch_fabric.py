@@ -7,6 +7,7 @@ outputs, faults, checker results and `stats()`."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from repro.core import ShardedFabric as JFabric
 from repro.core.bus import BISnpBus as JBus
@@ -16,7 +17,9 @@ from repro.core.fm import Proposal as JProposal
 from repro_torch.core import (FAULT_DESYNC, PERM_R, PERM_RW, BISnpBus,
                               BISnpEvent, FabricManager, FMUnavailable,
                               Proposal, ShardedFabric, pack_ext_addr)
-from repro_torch.core.fabric import patch_views, stack_views
+from repro_torch.core.checker import invalidate_perm_cache
+from repro_torch.core.fabric import (PENDING_BISNP_CAP, patch_views,
+                                     stack_views)
 from repro_torch.kernels.permcheck import make_shard_view
 from torch_parity import (LIFECYCLE_EVENTS, assert_equal,
                           assert_fabric_view_layout,
@@ -99,10 +102,12 @@ def _port_stats(tfab, jfab, *, built, kept, restacked):
     the counts the test's commits make: ``view_builds`` views built,
     ``views_kept`` views carried to a new epoch unbuilt (together the JAX
     fabric's `ShardView` re-resolutions) and ``rows_restacked`` rows
-    written into stacked views."""
+    written into stacked views.  Its ``bisnp`` counters hold no more
+    back-invalidates than the bus delivered."""
     st = tfab.stats()
     assert (st.pop("view_builds"), st.pop("views_kept"),
             st.pop("rows_restacked")) == (built, kept, restacked)
+    assert 0 <= st.pop("bisnp")["deferred"] <= st["bus"]["delivered"]
     assert built + kept == sum(
         rt.views.rebuilds for rt in jfab.runtimes.values())
     return st
@@ -284,6 +289,161 @@ def test_crash_host_bricks_and_rejoin_is_cold():
     fab.rejoin_host(0)
     assert not bool(fab.runtimes[0].check(np.zeros(4, np.int32),
                                           np.zeros(4, bool)).allowed.any())
+
+
+class _EagerFabric(ShardedFabric):
+    """A fabric whose hosts read their PermCache after every drop they are
+    given, so that each drop reaches the cache as it is made."""
+
+    def enroll(self, host_id, **kwargs):
+        rt = super().enroll(host_id, **kwargs)
+        defer = rt._defer
+
+        def eager(*drop):
+            defer(*drop)
+            rt.permcache  # noqa: B018 -- the read applies the drop
+        rt._defer = eager
+        return rt
+
+
+def _check_twins(rng, fabs, h, pid, span):
+    """One check of ``pid`` on host ``h`` of each fabric, over its span and
+    a few pages around it: the verdicts equal.  Returns the first's."""
+    start, n = span
+    ext = np.asarray(pack_ext_addr(
+        np.full(64, pid, np.int32),
+        (start + rng.integers(-4, n + 4, 64)).astype(np.int32)))
+    wr = rng.random(64) < 0.3
+    got = [fab.runtimes[h].check(ext, wr) for fab in fabs]
+    for f in CHECK_FIELDS:
+        assert_equal(getattr(got[0], f), getattr(got[1], f))
+    return got[0]
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_held_drops_equal_eager_application(seed):
+    """The lifecycle events (evict and re-admit, revoke, evict of the
+    revoked tenant, a shared grant and its release, vacuum, host crash and
+    rejoin, FM crash and restart), then a sequence gap healed by a point
+    resync, on a fabric whose hosts hold their drops and on a twin that
+    applies each at once: every check on random hosts between them gives
+    the same verdicts, a revoked tenant is denied at its host's first
+    check after the revoke, and every host's PermCache ends equal in every
+    field, with fewer folded passes where the drops were held."""
+    rng = np.random.default_rng(seed)
+    kw = dict(sdm_pages=1 << 14, table_capacity=4096, n_shards=4,
+              device="cpu")
+    fabs = (ShardedFabric(**kw), _EagerFabric(**kw))
+    states = [lifecycle_deployment(fab, Proposal) for fab in fabs]
+    state = states[0]
+
+    def tenants():
+        return [(h, p) for h, ps in sorted(state["assign"].items())
+                for p in ps]
+    for h, pid in tenants():                 # every cache warm
+        _check_twins(rng, fabs, h, pid, state["spans"][pid])
+    picks = rng.integers(0, 1 << 30, len(LIFECYCLE_EVENTS))
+    for kind, pick in zip(LIFECYCLE_EVENTS, picks):
+        for fab, st in zip(fabs, states):
+            lifecycle_event(fab, st, kind, int(pick))
+            fab.fabric_view(st["assign"])    # extraction, nothing read
+        assert states[0] == states[1], kind
+        if kind == "revoke":
+            pid = state["revoked"][-1]
+            h = next(g for g, p in tenants() if p == pid)
+            got = _check_twins(rng, fabs, h, pid, state["spans"][pid])
+            assert not bool(got.allowed.any())
+        for _ in range(int(rng.integers(0, 3))):
+            h, pid = tenants()[int(rng.integers(0, len(tenants())))]
+            _check_twins(rng, fabs, h, pid, state["spans"][pid])
+    for fab in fabs:                         # a hole, healed by a resync
+        rt = fab.runtimes[1]
+        rt.on_bisnp(BISnpEvent(0, 0, epoch=fab.fm.epoch,
+                               seq=rt._expected_seq + 2))
+    for h, pid in tenants():
+        _check_twins(rng, fabs, h, pid, state["spans"][pid])
+    assert [fab.runtimes[1].resyncs for fab in fabs] == [1, 1]
+    for h in range(4):
+        held, eager = (fab.runtimes[h].permcache for fab in fabs)
+        for f in ("tag", "entry", "plru", "hits", "misses"):
+            assert torch.equal(getattr(held, f), getattr(eager, f)), f
+        assert held.epoch == eager.epoch == fabs[0].fm.epoch
+    held, eager = (fab.stats()["bisnp"] for fab in fabs)
+    assert held["deferred"] == eager["deferred"] > 0
+    assert held["flushes"] < eager["flushes"]
+
+
+def test_bisnp_counters_hold_drops_until_a_read():
+    """A commit that no host reads after adds one held drop per host and
+    event and no folded pass; a check folds its host's drops once and a
+    second check nothing; past `PENDING_BISNP_CAP` held drops delivery
+    folds them, into the cache that applying each would give."""
+    fab = ShardedFabric(1 << 12, 256, 4, device="cpu")
+    rts = [fab.enroll(h) for h in range(4)]
+    tenants = [fab.admit(h, 16) for h in range(4)]
+    fab.quiesce()
+    assert fab.stats()["bisnp"] == {"deferred": 16, "flushes": 0}
+    published = fab.stats()["bus"]["published"]
+    fab.fm.revoke_hwpid(tenants[1][0])
+    fab.quiesce()
+    n_events = fab.stats()["bus"]["published"] - published
+    assert n_events >= 1
+    assert fab.stats()["bisnp"] == {"deferred": 16 + 4 * n_events,
+                                    "flushes": 0}
+    pid, start = tenants[2]
+    ext = np.asarray(pack_ext_addr(np.full(16, pid, np.int32),
+                                   np.arange(start, start + 16,
+                                             dtype=np.int32)))
+    for _ in range(2):
+        assert bool(rts[2].check(ext, np.zeros(16, bool)).allowed.all())
+        assert fab.stats()["bisnp"]["flushes"] == 1
+    rt = rts[2]
+    eager = rt.permcache
+    assert bool((eager.tag >= 0).any())
+    for k in range(PENDING_BISNP_CAP + 1):
+        ev = BISnpEvent(start + 8 + k % 20, k % 3, epoch=fab.fm.epoch,
+                        min_entry_idx=None if k % 7 else 1 + k % 5,
+                        seq=rt._expected_seq)
+        rt.on_bisnp(ev)
+        eager = invalidate_perm_cache(eager, ev.start_page, ev.n_pages,
+                                      ev.epoch,
+                                      min_shifted_entry=ev.min_entry_idx)
+        assert fab.stats()["bisnp"]["flushes"] == \
+            1 + (k == PENDING_BISNP_CAP)
+    assert len(rt._pending) == 1 and not rt.desynced
+    got = rt.permcache
+    for f in ("tag", "entry", "plru", "hits", "misses"):
+        assert torch.equal(getattr(got, f), getattr(eager, f)), f
+    assert got.epoch == eager.epoch
+    cached = set(got.tag.ravel().tolist())     # pages start + 8 on dropped
+    assert cached & set(range(start, start + 8))
+    assert not cached & set(range(start + 8, start + 16))
+
+
+def test_membership_flush_is_held_with_the_drops():
+    """A shared grant moves its host's shard membership: the extraction
+    holds the index flush behind the commit's drops, and the next read
+    leaves no cached index, fenced at the live epoch."""
+    fab = ShardedFabric(1 << 12, 256, 4, device="cpu")
+    rts = [fab.enroll(h) for h in range(4)]
+    pid, start = fab.admit(0, 16)
+    fab.quiesce()
+    ext = np.asarray(pack_ext_addr(np.full(16, pid, np.int32),
+                                   np.arange(start, start + 16,
+                                             dtype=np.int32)))
+    assert bool(rts[0].check(ext, np.zeros(16, bool)).allowed.all())
+    assert bool((rts[0].permcache.entry >= 0).any())
+    lo, hi = fab.shard_range(2)
+    fab.grant_shared(hi - 64, 32, pid, 0, perm=PERM_R)
+    fab.quiesce()
+    held = len(rts[0]._pending)
+    assert held >= 1
+    rts[0].shard_entries()                   # extraction, nothing read
+    assert len(rts[0]._pending) == held + 1
+    cache = rts[0].permcache
+    assert not bool((cache.entry >= 0).any())
+    assert cache.epoch == fab.fm.epoch
+    assert bool(rts[0].check(ext, np.zeros(16, bool)).allowed.all())
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])

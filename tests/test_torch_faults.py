@@ -180,6 +180,38 @@ def _reordered_copy_self_heals(P):
     return log + fault_counters(fab, plan)
 
 
+def _late_copy_heals_with_drops_held(P):
+    """As `_reordered_copy_self_heals`, on warm caches that nothing reads
+    between the loss and the healing copy: the port still holds the
+    drops when the host heals, and the desync and healing counters, the
+    fence and the cached pages read afterwards are the reference's."""
+    fab, rts, tenants = mk_fabric(P, n_hosts=2)
+    log = [check_span(P, rts[h], *tenants[h]) for h in (0, 1)]
+    plan = fab.inject_faults(P.core.FaultPlan(P.core.FaultSpec(reorder_p=1.0),
+                                              seed=0))
+    fab.fm.revoke_hwpid(tenants[1][0])
+    fab.fm.bus.faults = None
+    fab.fm.faults = None
+    fab.fm.vacuum()
+    fab.fm.bus.faults = plan
+    fab.fm.bus.drain()
+    fab.fm.bus.faults = None
+    assert all(rt.desync_events == 1 and rt.self_heals == 1 and
+               not rt.desynced and rt.resyncs == 0 for rt in rts)
+    if P is PORT:   # two admits, the revoke and the vacuum at each host;
+        # the warm checks folded the admits', the other two are held
+        assert all(len(rt._pending) == 2 for rt in rts)
+        assert fab.stats()["bisnp"] == {"deferred": 8, "flushes": 2}
+    for rt in rts:
+        assert int(rt.permcache.epoch) == fab.fm.epoch
+        log.append(sorted(set(as_np(rt.permcache.tag).ravel().tolist())))
+    assert not any(tenants[1][1] + i in log[-1] for i in range(8))
+    log += [check_span(P, rts[0], *tenants[0]),
+            check_span(P, rts[1], *tenants[1])]
+    assert all(log[-2][0]) and not any(log[-1][0])
+    return log + fault_counters(fab, plan)
+
+
 def _duplicates_harmless(P):
     fab, rts, tenants = mk_fabric(P, n_hosts=2)
     plan = fab.inject_faults(P.core.FaultPlan(P.core.FaultSpec(dup_p=1.0),
@@ -292,7 +324,7 @@ def _wedged_consumer(P):
 @pytest.mark.parametrize("scenario", [
     _no_fault_path, _dropped_event_resyncs,
     _desync_fails_closed_then_snapshot, _reordered_copy_self_heals,
-    _duplicates_harmless, _fm_crash_between_journal_and_broadcast,
+    _late_copy_heals_with_drops_held, _duplicates_harmless, _fm_crash_between_journal_and_broadcast,
     _host_crash_and_cold_rejoin, _heartbeat_monitor, _error_ledger,
     _wedged_consumer], ids=lambda f: f.__name__.strip("_"))
 def test_fault_scenario_matches(scenario):
