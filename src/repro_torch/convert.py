@@ -244,9 +244,9 @@ def cache_from_numpy(cfg: ArchConfig, cache, *, device=None):
     return [_split(KVCache, cache, i, dev) for i in range(lm.n_units(cfg))]
 
 
-def _stacked(parts: list):
+def _stack_layers(parts: list):
     if isinstance(parts[0], dict):
-        return {k: _stacked([p[k] for p in parts]) for k in parts[0]}
+        return {k: _stack_layers([p[k] for p in parts]) for k in parts[0]}
     return np.stack(parts)
 
 
@@ -261,7 +261,7 @@ def cache_to_numpy(cache):
         return {f: cache_to_numpy(getattr(cache, f)) for f in cache._fields}
     if isinstance(cache, dict):
         return {k: cache_to_numpy(v) for k, v in cache.items()}
-    return _stacked([cache_to_numpy(c) for c in cache])
+    return _stack_layers([cache_to_numpy(c) for c in cache])
 
 
 # ---------------------------------------------------------------------------

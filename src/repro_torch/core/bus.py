@@ -8,7 +8,9 @@ that deterministically:
     attached host's FIFO; a host consumes its queue in publish order, so the
     epoch stream each host observes is gap-free by construction and the
     `PermCache` fence (see `checker.invalidate_perm_cache`) stays
-    on its targeted-drop path;
+    on its targeted-drop path (a `fabric.HostRuntime` holds each delivered
+    drop and folds the held ones into its cache at the cache's next read,
+    `checker.fold_perm_cache_invalidations`, to the same cache);
   * **bounded delivery lag** — no host may fall more than `max_lag` events
     behind the FM: `publish()` force-delivers the oldest queued events of any
     host whose backlog would exceed the bound (the hardware analogue: the

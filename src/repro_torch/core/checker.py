@@ -197,8 +197,10 @@ def make_perm_cache(capacity_bytes: int = PERM_CACHE_BYTES, *,
                     device=None) -> PermCache:
     """Fresh (all-invalid) set-associative cache.  The 16 KiB default holds
     256 entries as 64 sets x 4 ways; ``ways=1`` gives the direct-mapped
-    layout.  Pass ``epoch=table.epoch`` (or wire `invalidate_perm_cache` to
-    the FM's BISnp events) to enable the fenced fast path."""
+    layout.  Pass ``epoch=table.epoch`` and apply the FM's BISnp events
+    (each with `invalidate_perm_cache`, or those held since the last read
+    with `fold_perm_cache_invalidations`, as `fabric.HostRuntime` does) to
+    enable the fenced fast path."""
     if ways < 1 or ways & (ways - 1):
         raise ValueError("perm cache ways must be a power of two")
     if capacity_bytes % (CACHE_ENTRY_BYTES * ways):
@@ -350,8 +352,10 @@ def cached_check_access(table: PermissionTable, hwpid_local: torch.Tensor,
     Semantically identical to `check_access` (same CheckResult fields except
     `probes`, which is 0 on cache-hit lanes); additionally returns the
     updated cache.  Thread the returned cache into the next call, and apply
-    `invalidate_perm_cache` for every FM BISnp event to keep the epoch
-    fence closed.
+    every FM BISnp event to it before that call to keep the epoch fence
+    closed: each with `invalidate_perm_cache`, or the ones held since the
+    last call in one `fold_perm_cache_invalidations` pass, as a fabric
+    host does at its cache's next read (`fabric.HostRuntime.permcache`).
     """
     dev = table.starts.device
     hwpid, page = unpack_ext_addr(_on(ext_addrs, dev))

@@ -16,9 +16,10 @@ is re-extracted from the committed table at most once per epoch
 (`shard_rebuilds` counts how often churn forced it), and per-tenant
 `ShardView`s for the kernels are memoized the same way: carried to the new
 epoch where the extracted arrays did not change, built where they did, and
-restacked into the fabric's stacked view row by row.  Entries straddling
-a shard boundary are kept whole — a superset shard is only extra work,
-never a wrong verdict, because the checker's range test is exact.
+stacked afresh into the fabric's stacked view, one `torch.stack` a field.
+Entries straddling a shard boundary are kept whole — a superset shard is
+only extra work, never a wrong verdict, because the checker's range test
+is exact.
 
 Observation model
 -----------------
@@ -55,6 +56,7 @@ from typing import NamedTuple, TYPE_CHECKING
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from .. import tracing
 from ..kernels import resolve_device
@@ -252,17 +254,32 @@ class HostRuntime:
         resident on this host's checker.  The table epoch does not move
         here, so every memo layer is dropped explicitly."""
         self._extra_ranges.append((start_page, start_page + n_pages))
-        self._shard_epoch = -1  # force re-extraction
-        self.views = _permcheck_mod().ShardViewCache()
-        self.fabric._fabric_view_key = None
+        self._drop_derived()
 
     def remove_resident_range(self, start_page: int, n_pages: int) -> None:
         """Release ONE occurrence of a shared resident range (ranges are
         occurrence-counted: two tenants sharing a region pin it twice)."""
         self._extra_ranges.remove((start_page, start_page + n_pages))
-        self._shard_epoch = -1  # force re-extraction
+        self._drop_derived()
+
+    def _drop_derived(self) -> None:
+        """Drop every memo derived from this host's shard: the next read
+        re-extracts it and builds its views, and the fabric re-stacks."""
+        self._shard_epoch = -1
         self.views = _permcheck_mod().ShardViewCache()
-        self.fabric._fabric_view_key = None
+        self.fabric._drop_fabric_view()
+
+    def rejoin(self, epoch: int, next_seq: int) -> None:
+        """Come back cold after a crash: a fresh PermCache fenced at
+        ``epoch``, the expected sequence at ``next_seq``, desync,
+        quarantine and backoff cleared, every derived memo dropped."""
+        self.crashed = False
+        self.quarantined = False
+        self._missing.clear()
+        self._reset_backoff()
+        self._expected_seq = next_seq
+        self.permcache = self._fresh_cache(epoch)
+        self._drop_derived()
 
     def resident_ranges(self) -> list[tuple[int, int]]:
         """Page ranges [lo, hi) this host's checker is resident for."""
@@ -427,59 +444,29 @@ _STACKED = (("starts", _SMAX), ("ends", _SMAX), ("permbits", 0),
 def stack_views(views: "list[ShardView]", hwpids, host_ids,
                 *, epoch: int) -> FabricView:
     """Pad per-host ShardViews to a common entry count and stack them into
-    one FabricView (same never-matching sentinels as `_pad_shard`:
-    INT32_MAX entry bounds, empty-tile summaries)."""
-    n_pad = max(v.starts.shape[0] for v in views)
-    t_pad = max(v.n_tiles for v in views)
-    dev = views[0].starts.device
+    one FabricView, one `torch.stack` a field, in new storage (same
+    never-matching sentinels as `_pad_shard`: INT32_MAX entry bounds,
+    empty-tile summaries).  Only the views shorter than the common count
+    are padded first."""
+    rows = dict(zip(views[0]._fields, zip(*views)))   # field -> row tensors
+    # each row's entry and tile counts, read once for all five fields
+    counts = {k: [a.shape[0] for a in rows[k]] for k in ("starts", "tile_min")}
 
     def stack(field: str, fill: int) -> torch.Tensor:
-        n = t_pad if field.startswith("tile") else n_pad
-        out = torch.full((len(views), n), fill, dtype=torch.int32,
-                         device=dev)
-        for i, v in enumerate(views):
-            a = getattr(v, field)
-            out[i, :a.shape[0]] = a
-        return out
+        ns = counts["tile_min" if field.startswith("tile") else "starts"]
+        n, col = max(ns), rows[field]
+        if min(ns) < n:
+            col = [a if m == n else F.pad(a, (0, n - m), value=fill)
+                   for a, m in zip(col, ns)]
+        return torch.stack(col)
 
     return FabricView(
         **{field: stack(field, fill) for field, fill in _STACKED},
-        hwpids=torch.as_tensor(list(hwpids), dtype=torch.int32, device=dev),
+        hwpids=torch.as_tensor(list(hwpids), dtype=torch.int32,
+                               device=views[0].starts.device),
         host_ids=tuple(host_ids),
         epoch=epoch,
     )
-
-
-def patch_views(base: FabricView, base_views: "list[ShardView]",
-                base_hwpids: list[int], views: "list[ShardView]",
-                hwpids: list[int], host_ids, *,
-                epoch: int) -> "tuple[FabricView, int] | None":
-    """`stack_views` of ``views`` made from ``base``, the FabricView stacked
-    from ``base_views`` and ``base_hwpids``: copies of its tensors, in
-    which only the rows whose view tensors are not those stacked there are
-    written again, and its ``hwpids`` unless they changed.  ``base``
-    itself is left as it is.  Returns (the view, rows written), or None
-    where the row count or either padding differs from ``base``'s (then
-    only `stack_views` gives the layout)."""
-    if len(views) != base.n_hosts or \
-            max(v.starts.shape[0] for v in views) != base.starts.shape[1] or \
-            max(v.n_tiles for v in views) != base.tile_min.shape[1]:
-        return None
-    changed = [i for i, (v, b) in enumerate(zip(views, base_views))
-               if any(getattr(v, f) is not getattr(b, f) for f, _ in _STACKED)]
-    fields = {}
-    for field, fill in _STACKED:
-        out = getattr(base, field).clone()
-        for i in changed:
-            a = getattr(views[i], field)
-            out[i, :a.shape[0]] = a
-            out[i, a.shape[0]:] = fill
-        fields[field] = out
-    if list(hwpids) != list(base_hwpids):
-        fields["hwpids"] = torch.as_tensor(list(hwpids), dtype=torch.int32,
-                                           device=base.hwpids.device)
-    return FabricView(**{"hwpids": base.hwpids, **fields},
-                      host_ids=tuple(host_ids), epoch=epoch), len(changed)
 
 
 class ShardedFabric:
@@ -519,11 +506,8 @@ class ShardedFabric:
         self.vacuums = 0
         self._fabric_view: FabricView | None = None
         self._fabric_view_key = None
-        # (ShardViews, hwpids) the stacked view was last made from
-        self._stacked: tuple[list, list[int]] | None = None
         self.view_rebuilds = 0
         self.view_reuses = 0
-        self.rows_restacked = 0
         # timing-trace recorder (memsim.replay.FabricTrace); set by
         # begin_trace(), consumed by end_trace() — None = not recording
         self._trace = None
@@ -699,15 +683,7 @@ class ShardedFabric:
         rt = self.runtimes[host_id]
         if not rt.crashed:
             raise ValueError(f"host {host_id} is not crashed")
-        rt.crashed = False
-        rt.quarantined = False
-        rt._missing.clear()
-        rt._reset_backoff()
-        rt._expected_seq = self.fm.bus._next_seq
-        rt.permcache = rt._fresh_cache(self.fm.epoch)
-        rt._shard_epoch = -1
-        rt.views = _permcheck_mod().ShardViewCache()
-        self._fabric_view_key = None
+        rt.rejoin(self.fm.epoch, self.fm.bus._next_seq)
         self.fm.bus.attach(host_id, rt.on_bisnp)
         if self.host_monitor is not None:
             self.host_monitor.beat(host_id)
@@ -749,9 +725,9 @@ class ShardedFabric:
     def fabric_view(self, hwpid_by_host: dict) -> FabricView:
         """Stacked egress operands for a (possibly multi-tenant) assignment,
         memoized per (table epoch, row list) — steady-state steps pay zero
-        derivation, any commit re-resolves once, and then builds only the
-        views of hosts whose shard changed and writes only their rows into
-        a copy of the last stacked view."""
+        derivation, and any commit re-resolves once: it builds only the
+        views of hosts whose shard changed and stacks every row afresh, so
+        a view handed out earlier is never written again."""
         rows = self.fabric_rows(hwpid_by_host)
         key = (self.fm.table.epoch, tuple(rows))
         if self._fabric_view is not None and self._fabric_view_key == key:
@@ -766,22 +742,18 @@ class ShardedFabric:
             with tracing.span("fabric.shard_views"):
                 views = [self.runtimes[h].shard_view(p) for h, p in rows]
             with tracing.span("fabric.stack_views"):
-                hwpids, host_ids = [p for _, p in rows], [h for h, _ in rows]
-                epoch = self.fm.table.epoch
-                patched = None
-                if self._stacked is not None:
-                    patched = patch_views(self._fabric_view, *self._stacked,
-                                          views, hwpids, host_ids,
-                                          epoch=epoch)
-                if patched is None:
-                    patched = (stack_views(views, hwpids, host_ids,
-                                           epoch=epoch), len(views))
-                self._fabric_view, written = patched
-        self._stacked = (views, hwpids)
+                self._fabric_view = stack_views(
+                    views, [p for _, p in rows], [h for h, _ in rows],
+                    epoch=self.fm.table.epoch)
         self._fabric_view_key = key
         self.view_rebuilds += 1
-        self.rows_restacked += written
         return self._fabric_view
+
+    def _drop_fabric_view(self) -> None:
+        """Drop the stacked view's memo: the next `fabric_view` re-resolves
+        even at the same epoch."""
+        self._fabric_view = None
+        self._fabric_view_key = None
 
     def step_egress(self, data, ext_addrs, hwpid_by_host: dict,
                     *, need: int = 1, key0: int = 0xAB, key1: int = 0xCD):
@@ -851,8 +823,8 @@ class ShardedFabric:
         """Deployment-wide counters (bus delivery, back-invalidates held
         for a later read and folded passes, shard rebuilds/sizes,
         `ShardView` builds and views carried to a new epoch unbuilt, summed
-        over hosts, rows written into stacked views) — read-only: never
-        forces a shard extraction, view rebuild or fold."""
+        over hosts) — read-only: never forces a shard extraction, view
+        rebuild or fold."""
         bus = self.fm.bus
         rts = self.runtimes.values()
         return {
@@ -879,7 +851,6 @@ class ShardedFabric:
                                for h, rt in self.runtimes.items()},
             "view_builds": sum(rt.views.rebuilds for rt in rts),
             "views_kept": sum(rt.views.kept for rt in rts),
-            "rows_restacked": self.rows_restacked,
             "shard_entries": {
                 h: (rt._shard[0].shape[0] if rt._shard is not None else -1)
                 for h, rt in self.runtimes.items()},

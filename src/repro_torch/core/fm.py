@@ -7,11 +7,13 @@ so host-side permission caches drop stale entries (paper §4.1.3 / §7.1.7).
 
 Live-update control plane: every committed table transaction bumps the table
 epoch and broadcasts ONE `BISnpEvent` carrying the minimal dirty page range
-(from `HostTable.commit`'s shadow-buffer diff) plus the new epoch.  Hosts
-apply it to their `PermCache` via
-`checker.invalidate_perm_cache` — targeted drops only, which is
-what keeps the cache's epoch fence closed and its all-hit fast path hot
-across tenant churn.
+(from `HostTable.commit`'s shadow-buffer diff) plus the new epoch.  Its
+drop of a host's `PermCache` is targeted (`checker.invalidate_perm_cache`),
+which is what keeps the cache's epoch fence closed and its all-hit fast
+path hot across tenant churn.  The fabric's hosts (`fabric.HostRuntime`)
+hold each drop at delivery and fold the held drops into the cache at its
+next read, in one pass (`checker.fold_perm_cache_invalidations`): the
+cache any reader sees is the one applying each drop at delivery gives.
 
 Delivery is two-plane (fabric scale, see the note in `bus`):
 every committed event is published onto the async `BISnpBus` (per-host

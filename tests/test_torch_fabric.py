@@ -18,9 +18,7 @@ from repro_torch.core import (FAULT_DESYNC, PERM_R, PERM_RW, BISnpBus,
                               BISnpEvent, FabricManager, FMUnavailable,
                               Proposal, ShardedFabric, pack_ext_addr)
 from repro_torch.core.checker import invalidate_perm_cache
-from repro_torch.core.fabric import (PENDING_BISNP_CAP, patch_views,
-                                     stack_views)
-from repro_torch.kernels.permcheck import make_shard_view
+from repro_torch.core.fabric import PENDING_BISNP_CAP
 from torch_parity import (LIFECYCLE_EVENTS, assert_equal,
                           assert_fabric_view_layout,
                           assert_fabric_views_equal, assert_u32_equal,
@@ -97,16 +95,14 @@ def _both_fabrics(**kwargs):
     return JFabric(**kwargs), ShardedFabric(device="cpu", **kwargs)
 
 
-def _port_stats(tfab, jfab, *, built, kept, restacked):
+def _port_stats(tfab, jfab, *, built, kept):
     """The port's `stats()` without its own keys, which are first held to
-    the counts the test's commits make: ``view_builds`` views built,
+    the counts the test's commits make: ``view_builds`` views built and
     ``views_kept`` views carried to a new epoch unbuilt (together the JAX
-    fabric's `ShardView` re-resolutions) and ``rows_restacked`` rows
-    written into stacked views.  Its ``bisnp`` counters hold no more
-    back-invalidates than the bus delivered."""
+    fabric's `ShardView` re-resolutions).  Its ``bisnp`` counters hold no
+    more back-invalidates than the bus delivered."""
     st = tfab.stats()
-    assert (st.pop("view_builds"), st.pop("views_kept"),
-            st.pop("rows_restacked")) == (built, kept, restacked)
+    assert (st.pop("view_builds"), st.pop("views_kept")) == (built, kept)
     assert 0 <= st.pop("bisnp")["deferred"] <= st["bus"]["delivered"]
     assert built + kept == sum(
         rt.views.rebuilds for rt in jfab.runtimes.values())
@@ -232,10 +228,9 @@ def test_sharded_fabric_scenario_matches_jax():
         fab.fm.restart()
         fab.quiesce()
     _check_equal(jfab.runtimes[1], tfab.runtimes[1], ext[2], wr)
-    # 5 rows built and stacked; the evict changes host 0's shard, so its
-    # 2 rows build and are written again, hosts 1-3 carry their 3 views
-    assert jfab.stats() == _port_stats(tfab, jfab, built=7, kept=3,
-                                       restacked=7)
+    # 5 rows built; the evict changes host 0's shard, so its 2 rows build
+    # again, hosts 1-3 carry their 3 views
+    assert jfab.stats() == _port_stats(tfab, jfab, built=7, kept=3)
     assert jfab.storage_overhead() == tfab.storage_overhead()
     assert (jfab.view_rebuilds, jfab.view_reuses) == \
         (tfab.view_rebuilds, tfab.view_reuses)
@@ -267,7 +262,7 @@ def test_shared_residency_and_churn_match():
                 fab.evict(0, live.pop(1)[0])
         fab.quiesce()
         got += [live, fab.free_pages(0), fab.vacuums,
-                _port_stats(fab, fabs[0], built=0, kept=0, restacked=0)
+                _port_stats(fab, fabs[0], built=0, kept=0)
                 if fab is fabs[1] else fab.stats()]
         seen.append(got)
     assert seen[0] == seen[1]
@@ -452,9 +447,9 @@ def test_incremental_fabric_view_equals_a_fresh_derivation(seed):
     evict of the revoked tenant, admit into a new span, a shared grant and
     its release, a hole inside a grant, vacuum, host crash and rejoin, FM
     crash and restart) through both packages: after each, the port's
-    stacked view, carried and patched, equals one derived from scratch bit
-    for bit, every row meets the search layout, and the step's words and
-    faults equal the JAX fabric's."""
+    stacked view, its unchanged hosts' views carried, equals one derived
+    from scratch bit for bit, every row meets the search layout, and the
+    step's words and faults equal the JAX fabric's."""
     rng = np.random.default_rng(seed)
     fabs = _both_fabrics(sdm_pages=1 << 14, table_capacity=4096,
                          n_shards=4)
@@ -482,36 +477,20 @@ def test_incremental_fabric_view_equals_a_fresh_derivation(seed):
         rt.views.rebuilds for rt in jfab.runtimes.values())
 
 
-def _view(rng, n, hwpid):
-    """A ShardView of ``n`` sorted entries, the permbits of ``hwpid``."""
-    bounds = np.sort(rng.choice(1 << 16, 2 * n, replace=False))
-    return make_shard_view(bounds[0::2], bounds[1::2],
-                           rng.integers(0, 4, n).astype(np.uint32),
-                           epoch=hwpid, device="cpu")
-
-
-def test_patch_views_writes_changed_rows_and_refuses_other_padding():
-    """A patch equals `stack_views` of the new views where a row's view
-    shrinks from two tiles to one under the same padding, where rows
-    trade places, and where only the HWPIDs move; the base stays as it
-    was; a new row count or padding is refused."""
-    rng = np.random.default_rng(4)
-    a, b, c = _view(rng, 1100, 1), _view(rng, 30, 2), _view(rng, 5, 3)
-    big = _view(rng, 1500, 4)
-    base = stack_views([a, b, c], [1, 2, 3], [0, 1, 2], epoch=7)
-    kept = base._replace(**{f: getattr(base, f).clone()
-                            for f in base._fields[:6]})
-    cases = [([c, b, big], [3, 2, 4], (2, 1, 2), 2),   # a shrinks, c moves
-             ([b, a, c], [2, 1, 3], (1, 0, 2), 2),     # two rows trade
-             ([a, b, c], [5, 2, 3], (0, 1, 2), 0)]     # the HWPIDs alone
-    for views, hwpids, hosts, n_written in cases:
-        got, written = patch_views(base, [a, b, c], [1, 2, 3], views,
-                                   hwpids, hosts, epoch=8)
-        assert written == n_written
-        assert_fabric_views_equal(got, stack_views(views, hwpids, hosts,
-                                                   epoch=8))
-    assert_fabric_views_equal(base, kept)
-    assert patch_views(base, [a, b, c], [1, 2, 3], [a, b], [1, 2], (0, 1),
-                       epoch=8) is None
-    assert patch_views(base, [a, b, c], [1, 2, 3], [b, b, c], [2, 2, 3],
-                       (0, 1, 2), epoch=8) is None
+@pytest.mark.parametrize("kind", ["readmit", "revoke", "evict_revoked"])
+def test_a_re_resolution_leaves_the_previous_view_unchanged(kind):
+    """A lifecycle commit, then the next `fabric_view`: the stacked view
+    taken before the commit (which steps already queued still read) holds
+    the bits it had, and the new one equals a derivation from scratch."""
+    fab = ShardedFabric(1 << 14, 4096, 4, device="cpu")
+    state = lifecycle_deployment(fab, Proposal)
+    if kind == "evict_revoked":
+        lifecycle_event(fab, state, "revoke", 1)
+    before = fab.fabric_view(state["assign"])
+    kept = before._replace(**{f: getattr(before, f).clone()
+                              for f in before._fields[:6]})
+    lifecycle_event(fab, state, kind, 1)
+    after = fab.fabric_view(state["assign"])
+    assert after.epoch > before.epoch
+    assert_fabric_views_equal(before, kept)
+    assert_fabric_views_equal(after, fresh_fabric_view(fab, state["assign"]))
