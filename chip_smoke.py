@@ -8,7 +8,7 @@ Run from the root of a checkout on a machine with one CUDA card and the
 CUDA toolkit.  Phases, each reported on its own line:
 
   1. device — the card as torch and ``nvidia-smi`` name it, power limit;
-  2. build — the six kernels compiled from ``src/repro_torch/kernels/
+  2. build — the seven kernels compiled from ``src/repro_torch/kernels/
      csrc`` (nvcc, sm_90a), with ptxas' register and spill lines; the
      three search kernels (permcheck, checked_memcrypt, fabric_egress)
      must not spill;
@@ -29,8 +29,11 @@ CUDA toolkit.  Phases, each reported on its own line:
      its per-expert loop within 1e-4 of the outputs' scale and timed
      beside its bound; then granite at full width with one Mamba2 and one
      attention layer: a prefill, then decode steps (eager, captured into
-     CUDA graphs, replayed) whose grouped-kernel and flash launches are
-     counted from zero;
+     CUDA graphs, replayed) whose grouped-kernel, flash and Mamba2 decode
+     launches are counted from zero; the fused Mamba2 decode step
+     (``mamba2_decode``) at granite's widths, out of place and in place,
+     held against its plain version within 1e-5 and timed beside its
+     bound;
   4. main path 1, the checked egress path — the quickstart flow on one
      host through the port's FabricManager and ops, then a 255-host /
      127-tenant ShardedFabric (1 GiB SDM, 8192-entry table, 4096 words per
@@ -143,6 +146,7 @@ import time
 from collections import OrderedDict
 from dataclasses import replace
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -165,6 +169,7 @@ from repro_torch.kernels import (_build, bucket_pad, launches,  # noqa: E402
 from repro_torch.kernels import fabric_egress as fe  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import memcrypt as mc  # noqa: E402
+from repro_torch.kernels import mamba2_decode as m2d  # noqa: E402
 from repro_torch.kernels import moe_grouped_ffn as mgf  # noqa: E402
 from repro_torch.kernels import permcheck as pc  # noqa: E402
 from repro_torch.checkpointing import elastic_reshard, store  # noqa: E402
@@ -220,6 +225,8 @@ SOURCES = {
     "moe_grouped_ffn": ("src/repro_torch/kernels/csrc/moe_grouped_ffn.cu",
                         "none (the reference's capacity dispatch leaves "
                         "its expert products to XLA)"),
+    "mamba2_decode": ("src/repro_torch/kernels/csrc/mamba2_decode.cu",
+                      "none (the reference leaves its Mamba2 step to XLA)"),
 }
 
 
@@ -1141,7 +1148,8 @@ def grouped_ffn_phase(dev, results: dict) -> dict:
     wall = time.perf_counter() - t0
     n_attn = run["layer_types"].count("attention")
     want = {"moe_grouped_ffn": run["steps"] * gcfg.n_layers,
-            "flash_attention": run["steps"] * n_attn}
+            "flash_attention": run["steps"] * n_attn,
+            "mamba2_decode": run["steps"] * (gcfg.n_layers - n_attn)}
     if {name: counts[name] for name in want} != want or \
             "graphs" not in cache or not bool(torch.isfinite(lg).all()):
         raise AssertionError(f"granite decode: launches {counts}, want "
@@ -1153,6 +1161,90 @@ def grouped_ffn_phase(dev, results: dict) -> dict:
     del params, cache, lg
     free_card()
     return {"launches": counts, "wall_s": wall}
+
+
+MAMBA2_DECODE_TOL = 1e-5     # f32: the sum over d_state in another order
+
+
+def mamba2_decode_shapes() -> dict:
+    """The shapes the fused Mamba2 decode step serves on the card: (batch,
+    d_inner, d_state, head_dim, conv taps, eps) of granite-4.0-h-small's
+    tenant decode (16 sequences, 128 heads x 64 x a 128-wide state) and of
+    the family phase's zamba2-1.2b (4 sequences, 64 heads x 64 x 64)."""
+    out = {}
+    for name, cfg, b in (("granite", PORT_ARCHS[GRANITE_ARCH],
+                          GRANITE_DECODE["batch"]),
+                         ("zamba2", ARCHS["zamba2-1.2b"], FAMILY_BATCH)):
+        out[name] = (b, cfg.ssm_expand * cfg.d_model, cfg.ssm_state,
+                     cfg.ssm_head_dim, cfg.ssm_conv, cfg.norm_eps)
+    return out
+
+
+def _mamba2_decode_case(dev, b, di, n, dh, w, eps, seed) -> dict:
+    """One fused step at these widths (one group, every weight drawn)
+    against its plain version, out of place and in place, and timed
+    beside its bound: the state read and written once, the conv windows
+    read and written, the inputs read and the output written."""
+    nh, gn = di // dh, n
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*shape, s=1.0):
+        return s * torch.randn(shape, generator=g, device=dev)
+    p = SimpleNamespace(
+        conv_x_w=rnd(w, di, s=0.5), conv_x_b=rnd(di, s=0.5),
+        conv_b_w=rnd(w, gn, s=0.5), conv_b_b=rnd(gn, s=0.5),
+        conv_c_w=rnd(w, gn, s=0.5), conv_c_b=rnd(gn, s=0.5),
+        a_log=rnd(nh, s=0.5), dt_bias=rnd(nh, s=0.5) - 2.0,
+        d_skip=rnd(nh), norm_scale=rnd(di, s=0.1))
+    proj = (rnd(b, di), rnd(b, di), rnd(b, gn), rnd(b, gn), rnd(b, nh))
+    cache = mamba_mod.Mamba2Cache(rnd(b, w - 1, di), rnd(b, w - 1, gn),
+                                  rnd(b, w - 1, gn), rnd(b, nh, dh, n))
+    copy_of = lambda c: type(c)(*(t.clone() for t in c))  # noqa: E731
+    want_y, want = m2d.mamba2_decode_plain(p, *proj, copy_of(cache),
+                                           eps=eps)
+    err = 0.0
+    for in_place in (False, True):
+        y, got = m2d.mamba2_decode(p, *proj, copy_of(cache), eps=eps,
+                                   in_place=in_place)
+        err = max(err, float((y - want_y).abs().max()),
+                  *(float((a - e).abs().max()) for a, e in zip(got, want)))
+    if not err <= MAMBA2_DECODE_TOL:
+        raise AssertionError(f"mamba2_decode at batch {b}, d_inner {di}, "
+                             f"state {n}: max abs err {err:.3e}")
+    state = b * nh * dh * n * 4
+    n_bytes = 2 * state + (2 * b * (w - 1) + w + 1) * (di + 2 * gn) * 4 + \
+        (3 * b * di + 2 * b * gn + b * nh + 3 * nh + di) * 4
+    live = copy_of(cache)
+    call = (lambda: m2d.mamba2_decode(p, *proj, live, eps=eps,
+                                      in_place=True))
+    kernels = kernel_times(call, "mamba2_decode_", 10)
+    r = dict(shape=f"batch {b}, {nh} heads x {dh} x state {n}, d_inner {di}",
+             mismatches=0, max_abs_err=err, library_ms=None,
+             call_ms=cuda_ms(call, 50),
+             kernel_only_ms=sum(kernels.values()) or None,
+             plain_ms=cuda_ms(lambda: m2d.mamba2_decode_plain(
+                 p, *proj, live, eps=eps, in_place=True), 10),
+             bound_ms=n_bytes / PEAK_BYTES_PER_S * 1e3, bound_by="bytes",
+             kernels=kernels, bytes=n_bytes)
+    del p, proj, cache, live, want, want_y
+    free_card()
+    return r
+
+
+def mamba2_decode_phase(dev, results: dict) -> None:
+    """The fused Mamba2 decode step at each shape it serves on the card
+    (`mamba2_decode_shapes`) against its plain version, timed beside its
+    bound.  The kernel table's row is granite's; every shape's reading is
+    under ``phases``."""
+    phases = {}
+    for i, (name, shape) in enumerate(mamba2_decode_shapes().items()):
+        r = phases[name] = _mamba2_decode_case(dev, *shape, SEED + 6 + i)
+        log(f"phase mamba2_decode {name} ({r['shape']}): max abs err "
+            f"{r['max_abs_err']:.3e}; kernels {r['kernel_only_ms']} ms "
+            f"({r['kernels']}), call {r['call_ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms (bound {r['bound_ms']:.4f} ms bytes, "
+            f"{r['bytes']} B)")
+    results["mamba2_decode"] = dict(phases["granite"], phases=phases)
 
 
 class AttendCheck:
@@ -2059,6 +2151,13 @@ def family_paths(dev) -> dict:
             dev, cfg, batch=FAMILY_BATCH, prompt=FAMILY_PROMPT,
             gen=FAMILY_GEN, requests=FAMILY_REQUESTS, label=label)
         toks, gen0 = first_group(demo, FAMILY_BATCH, dev)
+        # a Mamba2 layer's decode step is one fused launch on the card
+        m2 = cfg.n_layers if cfg.mamba_version == 2 else 0
+        served = facts["launches"]["mamba2_decode"]
+        if served % max(m2, 1) or bool(served) != bool(m2):
+            raise AssertionError(f"{label}: {served} mamba2_decode launches "
+                                 f"over {m2} Mamba2 layers")
+        reset_launches()
         if cfg.family == "ssm":
             if facts["launches"]["flash_attention"]:
                 raise AssertionError("falcon-mamba launched flash attention")
@@ -2067,6 +2166,12 @@ def family_paths(dev) -> dict:
             check = plain_attention_check(
                 cfg, params, toks, gen0, cap=FAMILY_PROMPT + FAMILY_GEN,
                 pos=FAMILY_PROMPT, label=label)
+        # the check's two runs decode one step each
+        if launches["mamba2_decode"] != 2 * m2:
+            raise AssertionError(f"{label}: the check's two decode steps "
+                                 f"launched mamba2_decode "
+                                 f"{launches['mamba2_decode']} times, not "
+                                 f"{2 * m2}")
         del params, engine, demo
         free_card()
         wall = time.perf_counter() - t0
@@ -2892,6 +2997,7 @@ def main() -> int:
     kernel_phases(dev, results)
     flash_phase(dev, results)
     granite = grouped_ffn_phase(dev, results)
+    mamba2_decode_phase(dev, results)
 
     # main path 1: the checked egress path
     reset_launches()

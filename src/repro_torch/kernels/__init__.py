@@ -1,6 +1,7 @@
 """The port's CUDA kernels for Hopper — the egress path (Space-Control
-permission check + memcrypt) and the serving path's flash attention — plus
-the launch helpers every kernel wrapper in this package shares.
+permission check + memcrypt), the serving path's flash attention, the
+dropless MoE's grouped expert FFN and the Mamba2 decode step — plus the
+launch helpers every kernel wrapper in this package shares.
 
 Each kernel is hand-written CUDA C++ under ``csrc/`` (built at first use by
 ``_build.py``) and ships with a plain PyTorch version of the same function
@@ -19,7 +20,8 @@ import torch
 # plain version and counts nothing), so a run can show that its main path
 # went through the kernels.
 launches = {"memcrypt": 0, "permcheck": 0, "checked_memcrypt": 0,
-            "fabric_egress": 0, "flash_attention": 0, "moe_grouped_ffn": 0}
+            "fabric_egress": 0, "flash_attention": 0, "moe_grouped_ffn": 0,
+            "mamba2_decode": 0}
 
 
 def reset_launches() -> None:

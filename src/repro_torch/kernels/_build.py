@@ -1,5 +1,5 @@
-"""Build and load the port's kernel library (egress, flash attention and
-the dropless MoE's grouped expert FFN).
+"""Build and load the port's kernel library (egress, flash attention, the
+dropless MoE's grouped expert FFN and the Mamba2 decode step).
 
 The CUDA sources under ``csrc/`` are compiled at first use with ``nvcc``
 for ``sm_90a`` — one ``nvcc`` per ``.cu`` file, all started together, then
@@ -45,6 +45,9 @@ SIGNATURES = {
     # x, tok, offsets, w_gate, w_up, w_down, ws, h, y, n_slots, (e, d, f),
     # splits, z, stream
     "moe_grouped_ffn_launch": [_P] * 9 + [_I64] + [_I32] * 6 + [_P],
+    # z, x, bm, cm, dt_in, 10 weights, 4 cache tensors read, 4 written, ws,
+    # y, (batch, di, gn, nh, dh, n, wlen), eps, stream
+    "mamba2_decode_launch": [_P] * 25 + [_I32] * 7 + [_F32, _P],
 }
 
 _lock = threading.Lock()

@@ -8,7 +8,15 @@ bound the memory of the backward pass, and the forward pass computes the
 same recurrence step by step.  Decode is the same body with S = 1.
 
 Caches are returned anew (the reference's functional form): they are
-O(1) in the context length, a few MB per layer at full width.
+O(1) in the context length, a few MB per layer at full width.  A caller
+that holds the cache's tensors in place (a CUDA graph) asks ``mamba2`` to
+write them instead (``in_place``).
+
+A Mamba2 decode step (S = 1, f32, plain tensors, no cost recorder,
+shapes the kernel takes) runs after its projections as the fused step
+`kernels.mamba2_decode`: on the card the state read once and written
+once, in three kernels; on the CPU its plain version, equal bit for bit
+to the code below.  Everything else takes the code below.
 """
 from __future__ import annotations
 
@@ -19,7 +27,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import tracing
 from ..kernels import is_dtensor
+from ..kernels.mamba2_decode import covers, mamba2_decode
 from ..launch.activations import BATCH, MODEL, constrain, layout, zeros
 from ..launch.hlo_analysis import active_recorder
 from .common import (column_parallel_matmul, normal, param, rms_norm,
@@ -304,9 +314,26 @@ def init_mamba2_cache(batch: int, di: int, gn: int, nh: int, head_dim: int,
                         device=device))
 
 
+def _fused_step(p: Mamba2, x, cache: Mamba2Cache) -> bool:
+    """Whether this call is a decode step the fused kernel path takes:
+    one position of plain f32 tensors, no cost recorder, and a state width
+    and conv the kernel covers (any head_dim and n_groups).  The wrapper
+    runs the kernel on the card and its plain version on the CPU."""
+    return (x.shape[1] == 1 and not is_dtensor(x)
+            and active_recorder() is None
+            and x.dtype == p.conv_x_w.dtype == torch.float32
+            and all(t.dtype == torch.float32 and not is_dtensor(t)
+                    for t in cache)
+            and covers(cache.ssm.shape[-1], p.conv_x_w.shape[0]))
+
+
 def mamba2(p: Mamba2, x, cache: Mamba2Cache | None = None, *,
-           head_dim: int = 64, n_groups: int = 1, eps: float = 1e-6):
-    """x: [B, S, D] -> (y, new_cache); ``eps`` is the gated norm's."""
+           head_dim: int = 64, n_groups: int = 1, eps: float = 1e-6,
+           in_place: bool = False):
+    """x: [B, S, D] -> (y, new_cache); ``eps`` is the gated norm's.  With
+    ``in_place`` the step writes the given cache's tensors and returns
+    that cache (a CUDA graph's decode); otherwise the cache is left as it
+    was and the new one is made of fresh tensors."""
     b, s, d = x.shape
     di = p.w_out.shape[0]
     nh = p.a_log.shape[0]
@@ -329,6 +356,13 @@ def mamba2(p: Mamba2, x, cache: Mamba2Cache | None = None, *,
     bmat = x @ p.w_b
     cmat = x @ p.w_c
     dt_in = x @ p.w_dt
+    if _fused_step(p, x, cache):
+        y, cache = mamba2_decode(p, z[:, 0], xi[:, 0], bmat[:, 0],
+                                 cmat[:, 0], dt_in[:, 0], cache, eps=eps,
+                                 in_place=in_place)
+        if not (x.is_cuda and torch.cuda.is_current_stream_capturing()):
+            tracing.count("mamba2.fused_steps", 1)
+        return _out_proj(y[:, None], p.w_out), cache
     xi, new_cx = _causal_conv(p.conv_x_w, p.conv_x_b, xi, cache.conv_x)
     bmat, new_cb = _causal_conv(p.conv_b_w, p.conv_b_b, bmat, cache.conv_b)
     cmat, new_cc = _causal_conv(p.conv_c_w, p.conv_c_b, cmat, cache.conv_c)
@@ -355,4 +389,9 @@ def mamba2(p: Mamba2, x, cache: Mamba2Cache | None = None, *,
     y = y + xi.to(f32) * p.d_skip[:, None]
     y = y.reshape(b, s, di).to(x.dtype)
     y = rms_norm(p.norm_scale, y * F.silu(z), eps)
-    return _out_proj(y, p.w_out), Mamba2Cache(new_cx, new_cb, new_cc, h_t)
+    new = Mamba2Cache(new_cx, new_cb, new_cc, h_t)
+    if in_place:
+        for dst, src in zip(cache, new):
+            dst.copy_(src)
+        new = cache
+    return _out_proj(y, p.w_out), new

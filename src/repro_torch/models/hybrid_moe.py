@@ -114,11 +114,13 @@ def init_cache(cfg: ArchConfig, batch: int, cap: int, dtype=torch.bfloat16,
     return {"layers": layers}
 
 
-def _mamba_layer(cfg: ArchConfig, layer, x, cache):
-    """``x + rm * mamba2(rms(x))`` -> (x, the layer's new cache)."""
+def _mamba_layer(cfg: ArchConfig, layer, x, cache, *, in_place=False):
+    """``x + rm * mamba2(rms(x))`` -> (x, the layer's new cache: with
+    ``in_place``, ``cache`` itself, written)."""
     with tracing.span("hybrid_moe.mamba"):
         y, cache = mamba2(layer.mixer, rms_norm(layer.ln1, x, cfg.norm_eps),
-                          cache, head_dim=cfg.ssm_head_dim, eps=cfg.norm_eps)
+                          cache, head_dim=cfg.ssm_head_dim, eps=cfg.norm_eps,
+                          in_place=in_place)
     return x + cfg.residual_multiplier * y, cache
 
 
@@ -225,21 +227,24 @@ class DecodeGraphs:
     Mamba2 recurrence, routing, norms), ~32 ms of host time against ~11 ms
     of device work at granite's widths: the host sets the pace.  Here one
     graph holds each run of layers between attention mixers: its Mamba2
-    layers (their state updated in place in the cache) and every layer's
-    MoE and shared expert (the grouped kernel's launches among them); the
-    last graph ends with the logits.  Each attention mixer runs eagerly
-    between two graphs, since its key length grows every step: it is
-    `Attention.forward`'s decode (norm, q/k/v projection, the cache write
-    at ``pos``, the flash kernel over keys ``0..pos``, the output
-    projection), as in an eager step.
+    layers (each writing its cache's conv windows and state in place, on
+    the card through the fused decode kernel path, with no copy) and
+    every layer's MoE and shared expert (the grouped kernel's launches
+    among them); the last graph ends with the logits.  Each attention
+    mixer runs eagerly between two graphs, since its key length grows
+    every step: it is `Attention.forward`'s decode (norm, q/k/v
+    projection, the cache write at ``pos``, the flash kernel over keys
+    ``0..pos``, the output projection), as in an eager step.
 
     Captured at a cache's second decode step (the first, eager, has loaded
     every kernel and library handle), never under the recorder: spans are
     kept around the replays (``hybrid_moe.graph``) and the attention
     mixers (``hybrid_moe.attention``), and the MoE counts its experts hit
     into a device scalar of its own, added to ``moe.experts_hit`` after
-    each replayed step while counters are on.  With routes on, each step's
-    experts are copied out of the graphs' buffer into the cache's record.
+    each replayed step while counters are on, as the fused Mamba2 steps
+    the graphs hold are added to ``mamba2.fused_steps``.  With routes on,
+    each step's experts are copied out of the graphs' buffer into the
+    cache's record.
     """
 
     def __init__(self, cfg: ArchConfig, params: HybridMoeLM, cache: dict,
@@ -255,12 +260,14 @@ class DecodeGraphs:
                               dtype=cfg.pdtype, device=dev)
                   for _ in self.attn]
         self.slots = tokens.shape[0] * cfg.top_k * cfg.n_layers
-        self.graphs = []          # (graph, grouped-kernel launches, output)
-        counted = launches["moe_grouped_ffn"]
+        # (graph, {kernel: launches a replay}, output)
+        self.graphs = []
+        counted = {k: launches[k] for k in ("moe_grouped_ffn",
+                                            "mamba2_decode")}
         x, lo = None, 0
         for j, a in enumerate(self.attn + [cfg.n_layers]):
             g = torch.cuda.CUDAGraph()
-            n0 = launches["moe_grouped_ffn"]
+            n0 = {k: launches[k] for k in counted}
             with torch.cuda.graph(g):
                 if j == 0:
                     self.hits.zero_()
@@ -270,17 +277,16 @@ class DecodeGraphs:
                     x, idx = _ffn(cfg, params.layers[lo - 1], x, self.hits)
                     self.routes[lo - 1].copy_(idx)
                 for i in range(lo, a):
-                    x, new = _mamba_layer(cfg, params.layers[i], x,
-                                          cache["layers"][i])
-                    for dst, src in zip(cache["layers"][i], new):
-                        dst.copy_(src)
+                    x, _ = _mamba_layer(cfg, params.layers[i], x,
+                                        cache["layers"][i], in_place=True)
                     x, idx = _ffn(cfg, params.layers[i], x, self.hits)
                     self.routes[i].copy_(idx)
                 # x: the next attention mixer's input, or the logits
                 x = x if a < cfg.n_layers else _logits(cfg, params, x)
-            self.graphs.append((g, launches["moe_grouped_ffn"] - n0, x))
+            self.graphs.append((g, {k: launches[k] - n0[k] for k in n0}, x))
             lo = a + 1
-        launches["moe_grouped_ffn"] = counted   # capture launched nothing
+        launches.update(counted)              # capture launched nothing
+        self.fused = sum(n["mamba2_decode"] for _, n, _ in self.graphs)
 
     def step(self, cfg: ArchConfig, params: HybridMoeLM, cache: dict,
              tokens, pos: int):
@@ -288,7 +294,8 @@ class DecodeGraphs:
         for j, (g, n, out) in enumerate(self.graphs):
             with tracing.span("hybrid_moe.graph"):
                 g.replay()
-            launches["moe_grouped_ffn"] += n
+            for k, v in n.items():
+                launches[k] += v
             if j < len(self.attn):
                 a = self.attn[j]
                 y, _ = _attention_layer(cfg, params.layers[a], out,
@@ -297,6 +304,8 @@ class DecodeGraphs:
         if tracing.counting():
             tracing.count("moe.slots", self.slots)
             tracing.count("moe.experts_hit", self.hits.clone())
+            if self.fused:
+                tracing.count("mamba2.fused_steps", self.fused)
         routes = _routes(cfg, cache)
         if routes is not None:
             step_routes = self.routes.clone()

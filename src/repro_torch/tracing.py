@@ -40,7 +40,9 @@ apart (`enable`): a profiled window can count with no span on, since a
 span is a profiler range as well.
 
 - ``moe.slots``: (token, expert) slots of the dropless MoE's calls;
-- ``moe.experts_hit``: experts with at least one slot, summed over calls.
+- ``moe.experts_hit``: experts with at least one slot, summed over calls;
+- ``mamba2.fused_steps``: Mamba2 decode steps run through the fused kernel
+  path (`kernels.mamba2_decode`), one a layer a step.
 
 With routes on, the hybrid MoE family keeps each token's experts in its
 cache (``cache["routes"]``: per layer, a list of [B, tokens, K] device

@@ -882,6 +882,22 @@ def test_flash_attention_kernel_with_granites_scale(  # noqa: F811
     assert float((other - want).abs().max()) > 1e-2
 
 
+def _small_granite(layer_types) -> dict:
+    """granite's published config.json at smoke widths, with these
+    layers."""
+    import json
+    pub = json.loads((Path(__file__).resolve().parents[1] / "scbench" /
+                      "configs" / "granite-4.0-h-small.json").read_text())
+    pub.update(hidden_size=128, num_attention_heads=4, num_key_value_heads=2,
+               head_dim=32, intermediate_size=64,
+               shared_intermediate_size=128, vocab_size=512,
+               num_local_experts=8, num_experts_per_tok=2, mamba_d_state=16,
+               mamba_d_head=32, mamba_n_heads=8,
+               num_hidden_layers=len(layer_types),
+               layer_types=list(layer_types))
+    return pub
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("layer_types", [
     ("mamba", "attention", "mamba"),
@@ -895,19 +911,9 @@ def test_granite_on_the_card_matches_the_plain_reference(  # noqa: F811
     from the third on replayed from CUDA graphs) against the plain
     reference's full forward on the card, within 1e-5 (f32 in another
     order)."""
-    import json
-
     import plain_granite as pg
     from repro_torch.models import hybrid_moe as thm
-    pub = json.loads((Path(__file__).resolve().parents[1] / "scbench" /
-                      "configs" / "granite-4.0-h-small.json").read_text())
-    pub.update(hidden_size=128, num_attention_heads=4, num_key_value_heads=2,
-               head_dim=32, intermediate_size=64,
-               shared_intermediate_size=128, vocab_size=512,
-               num_local_experts=8, num_experts_per_tok=2, mamba_d_state=16,
-               mamba_d_head=32, mamba_n_heads=8,
-               num_hidden_layers=len(layer_types),
-               layer_types=list(layer_types))
+    pub = _small_granite(layer_types)
     cfg = thm.config_from_published(pub)
     w = pg.init_weights(pub, torch.Generator(device=cuda).manual_seed(7),
                         cuda)
@@ -928,7 +934,112 @@ def test_granite_on_the_card_matches_the_plain_reference(  # noqa: F811
     n_attn = layer_types.count("attention")
     assert launches["moe_grouped_ffn"] == 9 * len(layer_types)
     assert launches["flash_attention"] == 9 * n_attn
+    assert launches["mamba2_decode"] == 8 * (len(layer_types) - n_attn)
     got = torch.stack(got, 1)
     for b in range(2):
         want = pg.forward(w, pub, toks[b])[15:]
         torch.testing.assert_close(got[b], want, rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# The fused Mamba2 decode step: the kernel against its plain version, and
+# granite's decode graphs (the kernel writing the cache in place) against
+# the eager decode
+# ---------------------------------------------------------------------------
+
+# (batch, d_inner, d_state, head_dim, n_groups): granite's widths at a
+# tenant's 16 sequences; zamba2-1.2b's (d_model 2048), also over 2 groups;
+# a head_dim of 5, whose B x d_inner (30) is no multiple of 4
+MAMBA2_WIDTHS = {"granite": (16, 8192, 128, 64, 1),
+                 "zamba2": (4, 4096, 64, 64, 1),
+                 "zamba2-2-groups": (4, 4096, 64, 64, 2),
+                 "ragged": (3, 10, 16, 5, 2)}
+
+
+def _mamba2_step_case(cuda, b, di, n, dh, groups, w=4, seed=0):  # noqa: F811
+    """A mixer's weights (every one drawn), one step's projections and a
+    cache whose windows and state are drawn, on the card."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    rnd = lambda *shape, s=1.0: s * torch.randn(shape, generator=g,  # noqa
+                                                device=cuda)
+    nh, gn = di // dh, groups * n
+    p = SimpleNamespace(
+        conv_x_w=rnd(w, di, s=0.5), conv_x_b=rnd(di, s=0.5),
+        conv_b_w=rnd(w, gn, s=0.5), conv_b_b=rnd(gn, s=0.5),
+        conv_c_w=rnd(w, gn, s=0.5), conv_c_b=rnd(gn, s=0.5),
+        a_log=rnd(nh, s=0.5), dt_bias=rnd(nh, s=0.5) - 2.0,
+        d_skip=rnd(nh), norm_scale=rnd(di, s=0.1))
+    proj = (rnd(b, di), rnd(b, di), rnd(b, gn), rnd(b, gn), rnd(b, nh))
+    from repro_torch.layers.mamba import Mamba2Cache
+    cache = Mamba2Cache(rnd(b, w - 1, di), rnd(b, w - 1, gn),
+                        rnd(b, w - 1, gn), rnd(b, nh, dh, n))
+    return p, proj, cache
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("in_place", [False, True])
+@pytest.mark.parametrize("width", list(MAMBA2_WIDTHS))
+def test_mamba2_decode_kernel_against_the_plain_version(  # noqa: F811
+        cuda, width, in_place):
+    """One step at granite's and zamba2's widths: the output and the four
+    cache tensors within 1e-5 of the plain version (the conv windows
+    exactly); out of place the given cache is left as it was, in place it
+    is the one written and returned."""
+    from repro_torch.kernels import mamba2_decode as tmd
+    p, proj, cache = _mamba2_step_case(cuda, *MAMBA2_WIDTHS[width])
+    kept = type(cache)(*(t.clone() for t in cache))
+    want_y, want = tmd.mamba2_decode_plain(p, *proj, kept, eps=1e-5)
+    y, got = _launched("mamba2_decode", lambda: tmd.mamba2_decode(
+        p, *proj, cache, eps=1e-5, in_place=in_place))
+    assert (got is cache) == in_place
+    if not in_place:
+        for a, k in zip(cache, kept):
+            assert torch.equal(a, k)
+    assert float(want_y.abs().max()) > 0.5
+    torch.testing.assert_close(y, want_y, rtol=1e-5, atol=1e-5)
+    for a, w in zip(list(got)[:3], want[:3]):
+        assert torch.equal(a, w)
+    torch.testing.assert_close(got.ssm, want[3], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_granite_decode_graphs_replay_the_eager_decode(cuda):  # noqa: F811
+    """A small granite (Mamba2, attention, Mamba2): ten decode steps through
+    `decode_step` (eager, captured, then replayed graphs whose Mamba2
+    steps write the cache in place) against the same steps run eagerly
+    from a copy of the prefill's cache: logits and every cache tensor
+    within 1e-5; every Mamba2 step went through the kernel, and the
+    replays counted theirs as ``mamba2.fused_steps``."""
+    from repro_torch import tracing
+    from repro_torch.models import hybrid_moe as thm
+    cfg = thm.config_from_published(_small_granite(
+        ("mamba", "attention", "mamba")))
+    params = thm.init_params(cfg, torch.Generator(device=cuda).manual_seed(9),
+                             cuda)
+    toks = torch.from_numpy(np.random.default_rng(9).integers(
+        0, cfg.vocab, (4, 26))).to(cuda)
+    _, cache = registry.prefill(cfg, params, {"tokens": toks[:, :16]},
+                                cache_dtype=torch.float32, cap=32)
+    eager = {"layers": [type(c)(*(t.clone() for t in c))
+                        for c in cache["layers"]]}
+    n_mamba = sum(k == "mamba" for k in thm.layer_kinds(cfg))
+    reset_launches()
+    tracing.enable(spans=False, counters=True)
+    try:
+        for pos in range(16, 26):
+            tok = toks[:, pos:pos + 1]
+            lg, cache = registry.decode_step(cfg, params, cache, tok, pos)
+            x, eager = thm._run(cfg, params, thm._embed(cfg, params, tok),
+                                eager, pos)
+            torch.testing.assert_close(lg, thm._logits(cfg, params, x),
+                                       rtol=1e-5, atol=1e-5)
+        torch.cuda.synchronize()
+        counted = tracing.take_counters()
+    finally:
+        tracing.disable()
+    assert "graphs" in cache
+    assert launches["mamba2_decode"] == 2 * 10 * n_mamba
+    assert counted["mamba2.fused_steps"] == 2 * 10 * n_mamba
+    for got, want in zip(cache["layers"], eager["layers"]):
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
